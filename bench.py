@@ -1,151 +1,56 @@
 #!/usr/bin/env python
-"""Headline benchmark: forward+backward intersection-query throughput on the
-street-canyon scene (BASELINE.json north star).
+"""Headline benchmark: forward+backward intersection-query throughput of the
+training step on one GPU (BASELINE.json north star).
 
-Metric: rays/s/chip where "rays" = Möller–Trumbore nearest-hit queries, the
+Metric: queries/s where "queries" = Möller–Trumbore nearest-hit queries, the
 SURVEY.md §3.2 cost model (num_bounces * num_tx * num_paths * (1 + num_rx)
-queries per trace), measured over a jitted forward+backward step (loss =
-scatter gain power, gradients w.r.t. the full material table).
+queries per trace), measured over the jitted forward+backward step of
+``chip_smoke.make_step`` (loss = scatter gain power, gradients w.r.t. the
+full material table) at 2^20 paths and 3 bounces.
 
-Prints ONE JSON line for the driver (the 1-RX headline, comparable across
-rounds):
-  {"metric": ..., "value": N, "unit": "rays/s/chip", "vs_baseline": N}
-plus one line per extra RX count (nrx=4, 16 — shadow rays are
-(num_rx)/(1+num_rx) of all queries, /root/reference/src/compute_paths.c:666).
-
-vs_baseline is the speedup over the compiled single-thread C reference on
-this host's CPU (the only baseline that exists; the reference publishes no
-numbers — BASELINE.md).
+Prints one JSON line per row — the generated street at nrx = 1 (the
+headline), 4 and 16, and the generated city at nrx = 1 — each naming the
+device and the card's power limit.  Exits non-zero without a GPU.
 """
 import json
 import os
 import sys
-import time
-import warnings
+import tempfile
 
-import numpy as np
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# launch_order="coherent" under parity="reference" fires an intentional
-# relabelling warning (path-indexed golden comparisons would mismatch);
-# irrelevant for throughput measurement — keep driver logs clean.
-warnings.filterwarnings(
-    "ignore", message="launch_order='coherent' relabels")
+from chip_smoke import (BOUNCES, FULL_RAYS, ITERS, make_scenes,  # noqa: E402
+                        phase_device, run_step, step_config)
 
-# persistent compile cache: repeat runs skip the slow remote compile
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                   ".jax_cache"))
-
-CANYON = "/root/reference/scenes/simple_street_canyon_with_cars.hrt"
-
-# Measured-fastest flags for this scene size (A/B rows in
-# benchmarks/README.md; probe_r3e/r3f logs):
-#  - exact1 fuse4: full-f32-grade intersection in one fused bf16 MXU pass
-#  - coherent launch + compact_rays: dead ray tiles skipped from bounce 1 on
-#  - grad_geometry=False: material grads bit-identical (tests/test_grad.py),
-#    geometric backward DCE'd (117 -> 142 Mq/s, probe_r3f)
-#  - gather="onehot_pallas": the transposed-layout VMEM one-hot fetch
-#    (142 -> 175 Mq/s, probe_r3j; the first-layout kernel measured 5x
-#    SLOWER — probe_r3f — before the rays-on-lanes rewrite)
-#  - shade: per-nrx (probe_r4m/r4m2, reconfirmed under the r5 whole-loop
-#    backward by probe_r5m): the fused bounce megakernel + the whole-loop
-#    material-level slim backward (ops/bounce_fused.py::fused_loop_slim)
-#    wins at nrx=1 (29.45 ms fwd+bwd, bwd/fwd 1.32x, probe_r5j2); at
-#    nrx>=4 the xla shade wins (250.0 vs 211.5 at nrx=4 — the forward
-#    shadow row stacks scale with nrx) so those rows keep shade="xla".
-BENCH_FLAGS = dict(backend="auto", keep_rays=False, precision="exact1",
-                   unroll_bounces=True, fuse4=True, compact_rays=True,
-                   launch_order="coherent", grad_geometry=False,
-                   gather="onehot_pallas", fetch_bwd="xla")
-SHADE_BY_NRX = {1: dict(shade="fused", grad_positions=False)}  # else xla
+ROWS = (("street", 1), ("street", 4), ("street", 16), ("city", 1))
 
 
-def _scene():
-    from hermespy_rt_tpu.scene import load_hrt, random_soup_scene
-    if os.path.exists(CANYON):
-        return load_hrt(CANYON)
-    return random_soup_scene(234, seed=0, extent=90.0, tri_size=8.0)
-
-
-def measure_tpu(num_paths=1 << 20, num_bounces=3, num_rx=1, iters=8):
-    import jax
-    import jax.numpy as jnp
-    from hermespy_rt_tpu.config import TracerConfig
-    from hermespy_rt_tpu.materials import default_materials
-    from hermespy_rt_tpu.scene import flatten_scene
-    from hermespy_rt_tpu.tracer import trace_paths
-
-    cfg = TracerConfig(num_paths=num_paths, num_bounces=num_bounces,
-                       **BENCH_FLAGS,
-                       **SHADE_BY_NRX.get(num_rx, dict(shade="xla")))
-    tris = flatten_scene(_scene())
-    mats = default_materials()
-    rx = (jnp.asarray([[10.0, 5.0, 2.0]], jnp.float32)
-          + jnp.arange(num_rx, dtype=jnp.float32)[:, None]
-          * jnp.asarray([[1.5, -2.0, 0.25]], jnp.float32))
-    tx = jnp.asarray([[-20.0, -10.0, 10.0]], jnp.float32)
-    zrx = jnp.zeros((num_rx, 3), jnp.float32)
-    ztx = jnp.zeros((1, 3), jnp.float32)
-
-    def loss_fn(mats):
-        res = trace_paths(tris, mats, rx, tx, zrx, ztx,
-                          jnp.float32(3.0), cfg)
-        return (jnp.sum(jnp.abs(res.scatter.a_te) ** 2)
-                + jnp.sum(jnp.abs(res.scatter.a_tm) ** 2)) * 1e9
-
-    step = jax.jit(jax.value_and_grad(loss_fn))
-    loss, g = step(mats)
-    jax.block_until_ready((loss, g))
-
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        loss, g = step(mats)
-    jax.block_until_ready((loss, g))
-    dt = (time.perf_counter() - t0) / iters
-
-    queries = num_bounces * 1 * num_paths * (1 + num_rx)
-    return queries / dt, dt, queries
-
-
-def measure_c_reference(num_paths=20000, num_bounces=3):
-    """Single-thread C reference queries/s on the same workload shape."""
-    try:
-        sys.path.insert(0, os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "tests"))
-        from oracle.oracle import run_reference
-        rx = np.array([[10.0, 5.0, 2.0]], np.float32)
-        tx = np.array([[-20.0, -10.0, 10.0]], np.float32)
-        z = np.zeros((1, 3), np.float32)
-        t0 = time.perf_counter()
-        run_reference(CANYON, rx, tx, z, z, 3.0, num_paths, num_bounces)
-        dt = time.perf_counter() - t0
-        queries = num_bounces * num_paths * 2
-        return queries / dt
-    except Exception:
-        return None
+def measure_step(tris, scene="street", num_paths=FULL_RAYS,
+                 num_bounces=BOUNCES, num_rx=1, iters=ITERS):
+    """Queries/s, seconds per step and queries per step of the fwd+bwd
+    step on ``tris`` (one of the generated scenes)."""
+    cfg = step_config(scene, num_paths, num_bounces=num_bounces)
+    rec = run_step(f"{scene} nrx={num_rx}", tris, cfg, scene, num_rx, iters)
+    queries = num_bounces * num_paths * (1 + num_rx)
+    return rec["queries_per_s"], rec["step_s"], queries
 
 
 def main():
-    value, dt, queries = measure_tpu(num_rx=1)
-    baseline = measure_c_reference() if os.path.exists(CANYON) else None
-    vs = (value / baseline) if baseline else None
-    print(json.dumps({
-        "metric": "street_canyon_fwd_bwd_rays_per_s_per_chip",
-        "value": value,
-        "unit": "rays/s/chip",
-        "vs_baseline": vs,
-    }))
-    for nrx in (4, 16):
-        try:
-            v, dt, q = measure_tpu(num_rx=nrx, iters=4)
+    dev, smi = phase_device()
+    from hermespy_rt_tpu.utils import enable_compile_cache
+    enable_compile_cache()
+    import jax
+    device = dict(platform=dev.platform, kind=dev.device_kind,
+                  count=len(jax.devices()), card=smi)
+    with tempfile.TemporaryDirectory() as work:
+        scenes = make_scenes(work)
+        for scene, nrx in ROWS:
+            value, dt, queries = measure_step(scenes[scene][1], scene,
+                                              num_rx=nrx)
             print(json.dumps({
-                "metric": f"street_canyon_fwd_bwd_rays_per_s_per_chip_nrx{nrx}",
-                "value": v, "unit": "rays/s/chip",
-                "vs_baseline": (v / baseline) if baseline else None,
-            }))
-        except Exception as e:  # extra rows must never break the headline
-            print(json.dumps({"metric": f"nrx{nrx}", "error": str(e)[:200]}),
-                  file=sys.stderr)
+                "metric": f"{scene}_fwd_bwd_queries_per_s_nrx{nrx}",
+                "value": value, "unit": "queries/s", "step_s": dt,
+                "queries": queries, "device": device}), flush=True)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,13 @@ import struct
 
 import numpy as np
 
-__all__ = ["make_city", "write_ply"]
+__all__ = ["make_city", "write_ply", "STREET", "CITY"]
+
+# The two generated scenes the benchmark and the chip smoke trace:
+# "street" — 4 buildings + ground, 224 triangles, canyon-class;
+# "city"   — the defaults, 131,072 triangles (BASELINE config 5).
+STREET = dict(n_buildings=4, sub=2, ground_sub=4)
+CITY = dict()
 
 
 def write_ply(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
@@ -140,6 +146,6 @@ def make_city(out_dir: str, n_buildings: int = 160, sub: int = 8,
 
 if __name__ == "__main__":
     import sys
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/city131k"
-    p = make_city(out)
-    print(p)
+    if len(sys.argv) != 2:
+        sys.exit("usage: config5_scene.py OUT_DIR")
+    print(make_city(sys.argv[1]))

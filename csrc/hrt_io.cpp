@@ -6,7 +6,7 @@
 // little-endian packed) and the binary PLY reader used by the Sionna
 // importer (/root/reference/src/scene_fromSionna.c:103-164).  Re-designed as
 // a reusable C ABI library (no exit() on error — status codes + message
-// buffer) that additionally performs the TPU-oriented scene *flattening*
+// buffer) that additionally performs the accelerator-oriented scene *flattening*
 // (mesh soup -> triangle SoA with normals) in native code, so multi-million
 // triangle scenes don't pay Python/numpy overheads on the load path.
 //
@@ -231,7 +231,7 @@ int hrt_load_ply(const char* path, void* scene_out, uint32_t material_index,
 }
 
 // ---------------------------------------------------------------------------
-// TPU-oriented flattening: mesh soup -> padded triangle SoA + unit normals
+// Accelerator-oriented flattening: mesh soup -> padded triangle SoA + unit normals
 // (the native fast path of hermespy_rt_tpu.scene.model.flatten_scene;
 // normal convention normalize((v2-v1)x(v3-v1)) as
 // /root/reference/src/compute_paths.c:208-224)

@@ -1,28 +1,36 @@
 #!/usr/bin/env python
-"""End-to-end demo: coverage map of a TX in the street-canyon scene.
+"""End-to-end demo: coverage map of a TX in a street scene.
 
-Usage:  python examples/coverage_map_demo.py [scene.hrt] [out.png]
+Usage:  python examples/coverage_map_demo.py [scene] [out.png]
+
+Without a scene argument it traces the generated street
+(benchmarks/config5_scene.py STREET, 224 triangles).
 
 Traces a probe grid over the scene footprint, renders path-gain /
 delay-spread / LoS-blockage maps, and prints summary statistics.
 """
 import os
 import sys
+import tempfile
 
 import numpy as np
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
 
 import hermespy_rt_tpu as hrt
 from hermespy_rt_tpu.models.coverage import coverage_map
 
 
 def main():
-    scene_path = sys.argv[1] if len(sys.argv) > 1 else \
-        "/root/reference/scenes/simple_street_canyon_with_cars.hrt"
     out_png = sys.argv[2] if len(sys.argv) > 2 else "coverage.png"
-
-    scene = hrt.load_scene(scene_path)
+    if len(sys.argv) > 1:
+        scene = hrt.load_scene(sys.argv[1])
+    else:
+        from config5_scene import STREET, make_city
+        with tempfile.TemporaryDirectory() as work:
+            scene = hrt.load_scene(make_city(work, **STREET))
     lo, hi = scene.bounding_box()
     print(f"scene: {scene.num_meshes} meshes, {scene.num_triangles} tris, "
           f"bbox {np.round(lo, 1)}..{np.round(hi, 1)}")

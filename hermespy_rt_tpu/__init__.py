@@ -1,10 +1,11 @@
-"""hermespy_rt_tpu — a TPU-native differentiable RF ray tracer.
+"""hermespy_rt_tpu — a differentiable RF ray tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 ``hermespy-rt`` C reference (multipath channel parameters — complex TE/TM path
 gains, delays, Doppler shifts, departure/arrival directions — between TX and RX
-sets in triangle-mesh scenes), redesigned for TPUs: dense SoA scenes, scanned
-bounce loops, Pallas intersection kernels, shard_map multi-chip scaling and
+sets in triangle-mesh scenes), built as array programs for an accelerator
+(an NVIDIA GPU; the CPU for tests): dense SoA scenes, scanned bounce loops, a
+Pallas (Triton) intersection kernel, shard_map multi-device scaling and
 end-to-end differentiability w.r.t. materials, positions and geometry.
 """
 from .api import compute_paths, trace, prepare_scene

@@ -8,7 +8,7 @@ counts) and returns ``(los, scatter)`` ChannelInfo objects with numpy-matching
 shapes — directions ``(num_rx, num_tx, num_rays, 3)``, complex64 gains and f32
 ``tau``/``freq_shift`` ``(num_rx, num_tx, num_rays)``.
 
-The extended entry point :func:`trace` exposes the full TPU-native surface:
+The extended entry point :func:`trace` exposes the full surface:
 scene objects, differentiable material tables, tracer configs, sharding and
 ray-segment outputs.
 """

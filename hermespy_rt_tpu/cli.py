@@ -75,15 +75,18 @@ def trace_main(argv=None):
     rxv = parse_vecs(args.rx_vel, len(rx))
 
     import hermespy_rt_tpu as hrt
-    from .utils.profiling import device_to_numpy, log_metrics, time_trace
+    from .utils import enable_compile_cache
+    from .utils.profiling import log_metrics, time_trace
+
+    enable_compile_cache()
 
     cfg = hrt.TracerConfig(num_paths=args.paths, num_bounces=args.bounces,
                            parity=args.parity, backend=args.backend)
     scene = hrt.load_scene(args.scene)
     result = hrt.trace(scene, rx, tx, rxv, txv, args.frequency, config=cfg)
 
-    los_a_te = device_to_numpy(result.los.a_te)
-    scat_a_te = device_to_numpy(result.scatter.a_te)
+    los_a_te = np.asarray(result.los.a_te)
+    scat_a_te = np.asarray(result.scatter.a_te)
     summary = {
         "scene": args.scene,
         "num_rx": len(rx), "num_tx": len(tx),
@@ -97,13 +100,13 @@ def trace_main(argv=None):
         np.savez(
             args.output,
             los_a_te=los_a_te,
-            los_a_tm=device_to_numpy(result.los.a_tm),
+            los_a_tm=np.asarray(result.los.a_tm),
             los_tau=np.asarray(result.los.tau),
             los_freq_shift=np.asarray(result.los.freq_shift),
             los_directions_rx=np.asarray(result.los.directions_rx),
             los_directions_tx=np.asarray(result.los.directions_tx),
             scatter_a_te=scat_a_te,
-            scatter_a_tm=device_to_numpy(result.scatter.a_tm),
+            scatter_a_tm=np.asarray(result.scatter.a_tm),
             scatter_tau=np.asarray(result.scatter.tau),
             scatter_freq_shift=np.asarray(result.scatter.freq_shift),
             scatter_directions_rx=np.asarray(result.scatter.directions_rx),
@@ -133,21 +136,34 @@ def trace_main(argv=None):
 
 
 def bench_main(argv=None):
-    p = argparse.ArgumentParser(prog="hrt-bench",
-                                description="Throughput benchmark.")
-    p.add_argument("--paths", type=int, default=1 << 21)
+    p = argparse.ArgumentParser(
+        prog="hrt-bench",
+        description="Throughput of the fwd+bwd trace step on one GPU "
+                    "(see bench.py).")
+    p.add_argument("--scene", choices=["street", "city"], default="street")
+    p.add_argument("--paths", type=int, default=1 << 20)
     p.add_argument("--bounces", type=int, default=3)
+    p.add_argument("--rx", type=int, default=1, help="number of receivers")
     args = p.parse_args(argv)
     import importlib.util
     import os
-    bench_path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "bench.py")
-    spec = importlib.util.spec_from_file_location("hrt_bench", bench_path)
+    import tempfile
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "hrt_bench", os.path.join(root, "bench.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    value, dt, queries = mod.measure_tpu(num_paths=args.paths,
-                                         num_bounces=args.bounces)
-    print(json.dumps({"rays_per_s": value, "wall_s": dt, "queries": queries}))
+    dev, smi = mod.phase_device()
+    from .utils import enable_compile_cache
+    enable_compile_cache()
+    with tempfile.TemporaryDirectory() as work:
+        tris = mod.make_scenes(work, (args.scene,))[args.scene][1]
+        value, dt, queries = mod.measure_step(
+            tris, args.scene, num_paths=args.paths,
+            num_bounces=args.bounces, num_rx=args.rx)
+    print(json.dumps({"queries_per_s": value, "step_s": dt,
+                      "queries": queries, "device": dev.device_kind,
+                      "card": smi}))
     return 0
 
 

@@ -6,7 +6,16 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["TracerConfig"]
+__all__ = ["TracerConfig", "check_block_sizes"]
+
+
+def check_block_sizes(block_rays, block_tris) -> None:
+    """The intersection kernel's tiles must be power-of-two ints (Triton
+    block shapes); ``bool`` is not a size."""
+    for name, v in (("block_rays", block_rays), ("block_tris", block_tris)):
+        if (isinstance(v, bool) or not isinstance(v, int) or v <= 0
+                or v & (v - 1)):
+            raise ValueError(f"{name} must be a power-of-two int, got {v!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,10 +33,12 @@ class TracerConfig:
                    /root/reference/src/compute_paths.c:573).
                    "physical" uses distance-correct occlusion with an epsilon
                    margin and per-index LoS velocities.
-      backend:     intersection backend: "jnp", "pallas", or "auto"
-                   (pallas on TPU for large ray counts, jnp otherwise).
+      backend:     intersection backend: "jnp", "pallas" (the Triton
+                   kernel; needs a GPU), or "auto" (the kernel on a GPU, jnp
+                   on a CPU; see tracer.resolve_backend).
       ray_chunk:   ray-axis chunk for the jnp backend's lax.map blocking.
-      block_rays / block_tris: Pallas kernel tile sizes.
+      block_rays / block_tris: the kernel's ray block and triangle tile
+                   (powers of two).
       unroll_bounces: unroll the bounce scan (num_bounces is small; unrolling
                    lets XLA overlap independent per-bounce work).
       keep_rays:   also return per-bounce ray segments + active masks
@@ -40,13 +51,10 @@ class TracerConfig:
     parity: str = "reference"
     backend: str = "auto"
     ray_chunk: int = 4096
-    # "auto" = 1024 for the brute/culled kernels (the r1-r3 tuned canyon
-    # value) and 2048 when the visit-list walk is active: bigger ray tiles
-    # re-stream each walk G tile fewer times, which beats the finer
-    # tiles' pruning granularity at 131k tris (config-5 sweep, probe_r5o/p:
-    # 512 -> 773.7 ms, 1024 -> 628.7, 2048 -> 583.1, 4096 -> 600.2).
-    block_rays: object = "auto"
-    block_tris: int = 256
+    # tuned on an H100 at the street and city scenes (PERF.md: 32 x 32 with
+    # 4 warps was fastest on both of 27 tile/warp combinations)
+    block_rays: int = 32
+    block_tris: int = 32
     unroll_bounces: bool = True
     # bounce-scan backward policy (unroll_bounces=False only): "save_all"
     # stores per-bounce intermediates so the backward never re-runs the
@@ -57,141 +65,54 @@ class TracerConfig:
     occlusion_offset: float = 1e-4
     # any-hit shadow queries (physical parity only, and never under
     # `transmission`): physical mode consumes only `blocked` from a shadow
-    # query, so the walk kernel may stop each shadow ray at its FIRST
-    # in-range hit instead of walking to the nearest — trace outputs are
+    # query, so the kernel may stop a ray block once every ray has an
+    # in-range hit instead of scanning to the nearest — trace outputs are
     # bit-identical (tests/test_config5.py::
-    # test_any_hit_shadow_walk_trace_invariant).  Reference parity always
-    # needs the nearest blocker (θ-clobber reads its normal).  Off = force
-    # nearest-hit shadow queries everywhere (A/B control; probe_r5i).
+    # test_any_hit_shadow_walk_trace_invariant).  Reference parity always needs
+    # the nearest blocker (θ-clobber reads its normal).  Off = force
+    # nearest-hit shadow queries everywhere (A/B control).
     shadow_any_hit: bool = True
-    # hit-payload fetch strategy: "onehot" = one-hot matmul against the fused
-    # per-triangle table (MXU, exact — the one-hot materialises in HBM),
-    # "onehot_pallas" = same contraction inside a Pallas kernel with the
-    # one-hot living only in VMEM (no HBM round-trip), "take" = plain XLA
-    # gather.  "auto" selects "onehot" for scenes up to 4096 padded
-    # triangles and "take" beyond (see LocalSceneAccess.__init__ for the
-    # policy; "onehot_pallas" is opt-in).
-    gather: str = "auto"
-    # Max rays per shadow-ray kernel query: the scatter pass batches all
-    # NRx * num_paths shadow rays into one nearest-hit call, whose expanded
-    # ray-feature operands scale with the ray count (16 RX x 1M rays would
-    # build ~4 GB of kernel operands).  Queries beyond this are split into
-    # equal RX groups run sequentially under lax.map — same results, bounded
-    # memory.
+    # hit-payload fetch strategy: "take" = plain XLA gather (the default:
+    # 6.3 vs 10.6 ms for the street fwd+bwd step on an H100, PERF.md);
+    # "onehot" = exact one-hot matmul against the fused per-triangle table
+    # (ops/fetch.py; its backward is a matmul too — the one-hot operand is
+    # [rays, triangles], so small scenes only).
+    gather: str = "take"
+    # Max rays per shadow-ray query: the scatter pass batches all
+    # NRx * num_paths shadow rays into one nearest-hit call, whose operands
+    # scale with the ray count.  Queries beyond this are split into equal RX
+    # groups run sequentially under lax.map — same results, bounded memory.
     rx_query_rays: int = 1 << 22
-    # Pallas intersection kernel precision:
-    #   "exact1"  - full-f32-grade contraction in ONE native bf16 MXU pass:
-    #               operands limb-split along the (otherwise padded) K axis,
-    #               all limb products >= 2^-24 kept.  Same error bound as
-    #               "highest" at ~1/6 the MXU work.
-    #   "highest" - exact f32 via XLA's 6-bf16-pass decomposition.
-    #   "bf16x2"  - two-limb operands, full 4-term product (4 passes); exact
-    #               arithmetic on geometry rounded to ~16 mantissa bits.
-    #   "high"    - bf16x3 cross terms only (3 passes); epsilon-edge hit
-    #               decisions may flip (e.g. across coplanar quad diagonals).
-    precision: str = "highest"
-    # per-tile AABB culling in the kernel (pays only for coherent ray sets)
-    cull: bool = False
-    # backward implementation of the onehot hit-payload fetch: "xla"
-    # (default — the pure-XLA one-hot^T matmul) or "pallas" (scatter-add
-    # kernel with the one-hot in VMEM).  Measured r3: the kernel loses
-    # in-graph (4.8 vs 3.2 ms per 1M-ray grad-fetch, probe_r3d) AND grad
-    # graphs embedding >~8 Pallas calls crash the TPU compiler helper
-    # (probe_r3c/d), so the kernel stays opt-in.
-    fetch_bwd: str = "xla"
-    # evaluate the four MT quantities (det/u/v/t) in ONE fused
-    # [4*TILE_T, K] @ [K, R] MXU pass instead of four separate dots —
-    # bit-identical results, fewer Mosaic pipeline steps.
-    fuse4: bool = False
-    # Visit-list walk kernel: a jnp prepass computes, per ray tile, the list
-    # of triangle tiles any of its rays can conservatively reach (slab test
-    # vs per-tile AABBs, honoring t_max), sorted near-to-far; the kernel
-    # walks exactly those tiles with a running-best-t reach test, so distant
-    # tiles are neither fetched nor evaluated.  Bit-identical results
-    # (tie-breaks preserved under any visit order).  This is the
-    # hierarchical answer to the reference's ``TODO BVH``
-    # (/root/reference/src/compute_paths.c:246).  Subsumes ``cull`` and
-    # honors ``compact_rays`` dead-ray hints.  Values: "auto" (the default —
-    # ON for scenes of >= 4096 padded triangles, the measured brute/walk
-    # crossover: the walk won 10x at 131k triangles and lost ~20% on the
-    # 256-triangle canyon, benchmarks/logs/probe_walk7/10), False (off),
-    # True (on; VMEM-resident G for small scenes, manual HBM DMA
-    # double-buffering beyond), "resident", "dma" (force a variant).
-    walk: "bool | str" = "auto"
-    # Walk prepass granularity: "ray" tests every ray against every coarse
-    # box (tightest lists) — since r5 swept by a Pallas kernel with
-    # arithmetic bit-identical to the XLA form, which cost ~26% of the
-    # config5 step (trace_r4h) and remains as "ray_xla" for A/B control;
-    # "tile" replaces it with ONE interval-arithmetic slab test per
-    # (ray tile, box) over the tile's origin AABB and inv-direction
-    # interval (O(nRT x C), conservative — the kernel re-tests fine AABBs
-    # and exact geometry, so results stay bit-identical).  "tile" needs
-    # per-tile direction coherence to prune well (pair with
-    # launch_order="coherent").  "auto" resolves to "ray": measured on
-    # config5 the conservative tile lists cost the walk kernel more than
-    # the prepass saves (probe_r4l C vs B: +135 ms kernels vs -180 ms
-    # prepass).
-    walk_prepass: str = "auto"
-    # (Mid-trace ray re-sorting — the r4 `resort` knob — was DELETED in r5:
-    # measured negative on the only large scene (probe_r4i/l: 772 -> 1261
-    # ms e2e; the walk kernel's near-to-far early-out already absorbs
-    # bounce>=2 incoherence), and its bit-identity contract proved
-    # unenforceable — XLA's fma contraction choices are graph-dependent, so
-    # the sorted and unsorted graphs drift by 1-2 ulp whenever anything
-    # else in the graph changes.  benchmarks/README.md round-5 notes.)
     # Launch-direction assignment: "fibonacci" enumerates paths exactly like
     # the reference (/root/reference/src/compute_paths.c:442-456 — adjacent
-    # path indices are ~2.4 rad apart in azimuth, so a 1024-ray kernel tile
+    # path indices are ~2.4 rad apart in azimuth, so a kernel ray block
     # spans a whole polar band); "coherent" launches the SAME direction set
-    # but assigns indices in direction-Morton order, making every ray tile a
-    # narrow cone — tile visit lists shrink, dead rays die in tighter index
-    # bands, and the walk/culled kernels prune far more (+5-8% e2e on the
-    # canyon, probe_r3e).  Outputs remain self-consistent (directions_tx
-    # reports each path's true direction); only the path <-> direction
-    # labelling differs from the reference, so parity suites use
-    # "fibonacci".  "auto" (default): "fibonacci" under parity="reference"
-    # (path-indexed golden comparisons stay valid), "coherent" otherwise.
+    # but assigns indices in direction-Morton order, making every ray block
+    # a narrow cone — dead rays die in tighter index bands, so whole blocks
+    # skip.  Outputs remain self-consistent (directions_tx reports each
+    # path's true direction); only the path <-> direction labelling differs
+    # from the reference, so parity suites use "fibonacci".  "auto"
+    # (default): "fibonacci" under parity="reference" (path-indexed golden
+    # comparisons stay valid), "coherent" otherwise.
     launch_order: str = "auto"
-    # Dead-ray skipping: hand the kernel t_max = -1 for inactive rays so the
-    # culled kernel's reach test skips whole ray tiles that are entirely
-    # dead.  Exact (a forced miss for a dead ray is semantically identical
-    # to ignoring its result) and overhead-free; rays die in contiguous
-    # Fibonacci index bands, so no reordering is needed.  Pays from bounce 1
-    # on, where activity drops to ~46%/~24% on the canyon scene.  Implies
-    # the culled kernel for in-bounce queries.
+    # Dead-ray skipping: hand the kernel the activity mask so it skips ray
+    # blocks in which every ray is dead.  Exact (a forced miss for a dead
+    # ray is semantically identical to ignoring its result); rays die in
+    # contiguous launch-index bands, so no reordering is needed.  Pays from
+    # bounce 1 on, once rays start leaving the scene.
     compact_rays: bool = False
     # Occlusion with penetration loss (physical mode only): LoS paths and
     # scatter shadow rays blocked by an obstacle are attenuated by the
     # obstacle's ITU transmission coefficients (eqs. 31c/31d — the extension
     # the reference left as TODO) instead of zeroed.  Nearest blocker only.
     transmission: bool = False
-    # Bounce-shading implementation: "xla" runs the per-ray reflection math
-    # (hit-distance recompute, Fresnel, amplitude update, specular step) as
-    # jnp ops — many XLA loop fusions whose intermediates round-trip HBM;
-    # "pallas" fuses the reflection-half chain into one VPU kernel per
-    # 4096-ray tile (ops/shade.py) with a jnp-vjp backward — bit-identical
-    # forward values, gradients exactly those of the jnp path.  "fused"
-    # fuses the ENTIRE per-bounce elementwise pipeline (in-kernel payload
-    # fetch + reflection shading + shadow setup + scattering outputs) into
-    # two Pallas passes per bounce whose BACKWARDS are Pallas kernels too
-    # (in-VMEM vjp recompute; ops/bounce_fused.py) — forward within 1-2 ulp
-    # of the jnp path (Mosaic fma contraction; 3e-5 rtol + identical
-    # decision masks asserted by tests/test_bounce_fused.py), gradients the
-    # vjp of the same chain.  "fused" applies to local (non-sharded) scene
-    # access with a fused payload table of <= 2048 padded triangles, parity
-    # both modes, transmission off; other configs fall back to the jnp path
-    # with a one-time warning.  "pallas" composes with either scene access;
-    # only spawn_transmission forces the jnp path (the transmit select is
-    # jnp-only).
-    shade: str = "xla"
     # Backward rematerialisation policy for the bounce step: "none" saves
-    # whatever XLA decides (every fusion boundary becomes a forward-pass HBM
+    # whatever XLA decides (every fusion boundary becomes a forward-pass
     # materialisation kept for the backward); "hits" checkpoints each bounce
     # saving ONLY the intersection decisions and fetched payload rows
     # (tagged via checkpoint_name) — the elementwise shading recomputes
-    # inside the backward, where it fuses with the cotangent math instead of
-    # round-tripping residuals through HBM.  The Pallas kernels are never
-    # re-run (their outputs are exactly the saved names).
+    # inside the backward, where it fuses with the cotangent math.  The
+    # intersection is never re-run (its outputs are exactly the saved names).
     remat: str = "none"
     # Differentiability scope: True (default) keeps every fetched triangle
     # quantity differentiable (gradients flow to scene vertices, normals and
@@ -204,29 +125,15 @@ class TracerConfig:
     # enter only through the eta columns, whose chain never passes through
     # geometry); gradients w.r.t. vertices/velocities/TX-TO-scene paths are
     # zeroed.  Use for material-calibration training loops: the backward
-    # pass drops from ~1.6x forward to ~1.2x at 1M rays.
+    # pass shrinks to the material chain.
     grad_geometry: bool = True
-    # Differentiability scope for positions (shade="fused" only): False
-    # declares TX/RX positions, launch geometry and the carrier-derived
-    # scalars compile-time constants of the BACKWARD — the fused kernels'
-    # in-VMEM vjp then prunes the entire geometric cotangent chain at trace
-    # time, the static form of the DCE XLA performs for a materials-only
-    # jax.grad (which cannot reach inside a monolithic backward kernel;
-    # measured 23.3 -> ~4 ms of backward kernels, probe_r4a/b).  Material
-    # gradients are unchanged; gradients w.r.t. positions/frequency are
-    # zeroed.  Requires grad_geometry=False.  The jnp path ignores this
-    # knob (XLA's own DCE covers it).
-    grad_positions: bool = True
     # Payload-table placement under triangle sharding (trace_paths_sharded
-    # with a tris mesh axis > 1).  The kernel operands triangle sharding
-    # exists to split are the pre-expanded G matrices (~1 KB/triangle);
-    # the 27-column payload table is 108 B/triangle.  False REPLICATES the
-    # table per shard: every per-hit fetch and the parity theta-clobber
-    # normal fetch become local gathers with ZERO collectives (the r4
-    # masked psums were 18 of 31 collectives/step,
-    # trisharded_collectives.json).  True shards it (masked-psum fetch, the
-    # r4 behavior) for scenes whose replicated table would not fit.
-    # "auto" replicates up to 2^22 padded triangles (~450 MB/shard).
+    # with a tris mesh axis > 1).  The 27-column payload table is 108 B per
+    # triangle.  False REPLICATES it per shard: every per-hit fetch and the
+    # parity theta-clobber normal fetch become local gathers with ZERO
+    # collectives.  True shards it (masked-psum fetch) for scenes whose
+    # replicated table would not fit.  "auto" replicates up to 2^22 padded
+    # triangles (~450 MB/shard).
     tri_shard_table: "bool | str" = "auto"
     # Transmission-path spawning (physical mode only): rays are partitioned
     # over all 2**num_bounces reflect/transmit interaction sequences (static
@@ -260,33 +167,16 @@ class TracerConfig:
             raise ValueError(f"backend must be 'jnp', 'pallas' or 'auto', got {self.backend!r}")
         if self.num_paths <= 0 or self.num_bounces <= 0:
             raise ValueError("num_paths and num_bounces must be > 0")
-        if self.shade not in ("xla", "pallas", "fused"):
-            raise ValueError(f"shade must be 'xla', 'pallas' or 'fused', "
-                             f"got {self.shade!r}")
-        if self.block_rays != "auto" and (
-                not isinstance(self.block_rays, int)
-                or self.block_rays <= 0):
-            raise ValueError("block_rays must be 'auto' or a positive int, "
-                             f"got {self.block_rays!r}")
+        check_block_sizes(self.block_rays, self.block_tris)
         if self.remat not in ("none", "hits"):
             raise ValueError(f"remat must be 'none' or 'hits', got "
                              f"{self.remat!r}")
         if self.scan_remat not in ("save_all", "recompute"):
             raise ValueError(f"scan_remat must be 'save_all' or 'recompute',"
                              f" got {self.scan_remat!r}")
-        if self.gather not in ("auto", "onehot", "onehot_pallas", "take"):
-            raise ValueError("gather must be 'auto', 'onehot', "
-                             f"'onehot_pallas' or 'take', got {self.gather!r}")
-        if self.precision not in ("highest", "exact1", "bf16x2", "high"):
-            raise ValueError("precision must be 'highest', 'exact1', "
-                             f"'bf16x2' or 'high', got {self.precision!r}")
-        if self.walk not in (False, True, "auto", "resident", "dma"):
-            raise ValueError("walk must be False, True, 'auto', 'resident' "
-                             f"or 'dma', got {self.walk!r}")
-        if self.walk_prepass not in ("auto", "ray", "ray_xla", "tile"):
-            raise ValueError("walk_prepass must be 'auto', 'ray', "
-                             f"'ray_xla' or 'tile', got "
-                             f"{self.walk_prepass!r}")
+        if self.gather not in ("take", "onehot"):
+            raise ValueError("gather must be 'take' or 'onehot', "
+                             f"got {self.gather!r}")
         if self.launch_order not in ("auto", "fibonacci", "coherent"):
             raise ValueError("launch_order must be 'auto', 'fibonacci' or "
                              f"'coherent', got {self.launch_order!r}")
@@ -297,19 +187,12 @@ class TracerConfig:
                 "assignments: outputs stay self-consistent but path-indexed "
                 "comparisons against the C reference will mismatch; parity "
                 "suites should use launch_order='fibonacci'.", stacklevel=2)
-        if self.fetch_bwd not in ("pallas", "xla"):
-            raise ValueError("fetch_bwd must be 'pallas' or 'xla', got "
-                             f"{self.fetch_bwd!r}")
         if self.rx_query_rays <= 0:
             raise ValueError("rx_query_rays must be > 0, got "
                              f"{self.rx_query_rays}")
         if self.transmission and self.parity != "physical":
             raise ValueError("transmission=True requires parity='physical' "
                              "(the reference semantics zero blocked paths)")
-        if not self.grad_positions and self.grad_geometry:
-            raise ValueError("grad_positions=False requires "
-                             "grad_geometry=False (the cross-bounce vertex "
-                             "chain rides the ray operand it stops)")
         if self.spawn_transmission and self.parity != "physical":
             raise ValueError("spawn_transmission=True requires "
                              "parity='physical' (the reference has no "

@@ -7,7 +7,7 @@ frequency power-law coefficients ``a, b, c, d`` for relative permittivity and
 conductivity, a scattering coefficient ``s`` in [0, 1], scattering-lobe ratios
 ``s1, s2, s3`` and integer lobe widths ``s1_alpha, s3_alpha``.
 
-TPU-native redesign: instead of a global C struct array, materials live in a
+Array-first redesign: instead of a global C struct array, materials live in a
 :class:`MaterialTable` pytree of dense ``float32`` arrays indexed by material id.
 Every column is a JAX leaf, so gradients w.r.t. permittivity/conductivity
 coefficients and roughness flow through the tracer (the north-star requirement).

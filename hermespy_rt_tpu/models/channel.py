@@ -2,7 +2,7 @@
 
 The reference stops at per-path parameters (``ChannelInfo``); its consumer
 (HermesPy) turns them into channel realisations.  This module provides that
-next layer TPU-natively so the framework is usable end-to-end: band-limited
+next layer as array programs so the framework is usable end-to-end: band-limited
 channel impulse responses (tapped delay lines), narrowband coefficients with
 Doppler evolution, and summary statistics — all jit/vmap/grad-compatible.
 """

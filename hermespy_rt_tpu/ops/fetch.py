@@ -1,22 +1,21 @@
-"""Exact one-pass MXU row fetch: ``out[r] = table[idx[r]]`` as a matmul.
+"""Exact one-pass row fetch: ``out[r] = table[idx[r]]`` as a matmul.
 
 The tracer gathers a fused per-triangle payload row for every hit
 (:class:`hermespy_rt_tpu.tracer.LocalSceneAccess`).  Expressing the gather as
-``one_hot(idx) @ table`` puts it on the MXU (and makes its backward — a
-scatter-add into the table — a matmul too), but a correct f32 result via
-``Precision.HIGHEST`` costs 6 bf16 passes.
+``one_hot(idx) @ table`` makes its backward — a scatter-add into the table —
+a matmul too, but an exact float32 product would need full-precision passes.
 
-TPU-native trick (same spirit as the intersection kernel's "exact1" mode,
-:mod:`hermespy_rt_tpu.ops.intersect_pallas`): a one-hot matrix is *exactly*
-representable in bf16, and a f32 table splits exactly into three bf16 limbs
-(8 mantissa bits each).  Stacking the limbs along the column axis
-(``[T, C] -> [T, 3C]`` bf16) makes ONE native-bf16 pass compute every limb of
-the selected row exactly (each output element is a single ``1.0 * limb``
-product accumulated in f32); summing the three limb groups reconstructs the
-f32 row bit-exactly.  6x less MXU work than HIGHEST, half the operand bytes.
+The trick: a one-hot matrix is *exactly* representable in bf16, and a f32
+table splits exactly into three bf16 limbs (8 mantissa bits each).  Stacking
+the limbs along the column axis (``[T, C] -> [T, 3C]`` bf16) makes ONE
+native-bf16 pass with float32 accumulation compute every limb of the selected
+row exactly (each output element is a single ``1.0 * limb`` product); summing
+the three limb groups reconstructs the f32 row bit-exactly.  On a GPU the
+pass runs on the tensor cores.
 
 The backward applies the identical trick to the cotangent: ``dtable =
-one_hot(idx)^T @ split3(g)`` — also one exact pass.  ``idx`` is a
+one_hot(idx)^T @ split3(g)`` — also one pass, exact up to the float32
+accumulation order of the rays that hit the same triangle.  ``idx`` is a
 non-differentiable decision input (hit indices).
 
 Reference context: the gather replaces the reference's per-hit struct reads
@@ -24,8 +23,6 @@ Reference context: the gather replaces the reference's per-hit struct reads
 :653, :661) with one dense lookup.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,12 +34,12 @@ def _split3_bf16(x):
     """f32 -> 3 bf16 limbs with h1 + h2 + h3 == x exactly (24 = 3 x 8
     mantissa bits).
 
-    The optimization barriers are load-bearing: this repo's TPU sessions run
-    with ``--xla_allow_excess_precision=true``, under which XLA elides
+    The optimization barriers are load-bearing: under XLA's default
+    ``--xla_allow_excess_precision=true`` the compiler may elide
     ``convert_f32(convert_bf16(x))`` round-trips — turning ``x - f32(bf16(x))``
-    into ``x - x == 0`` and silently zeroing the lower limbs (observed on
-    TPU: 2^-8 relative fetch error, benchmarks/logs/probe_walk3.log).  The
-    barrier pins the rounded value so the residual is computed for real.
+    into ``x - x == 0`` and silently zeroing the lower limbs (a 2^-8
+    relative fetch error).  The barrier pins the rounded value so the
+    residual is computed for real.
     """
     h1 = x.astype(jnp.bfloat16)
     r1 = x - jax.lax.optimization_barrier(h1).astype(jnp.float32)
@@ -68,42 +65,23 @@ def _onehot_bf16(idx, t):
     return (idx[..., None] == iota).astype(jnp.bfloat16)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def onehot_fetch(idx, table, bwd="xla"):
+@jax.custom_vjp
+def onehot_fetch(idx, table):
     """``table[idx]`` for clamped ``idx`` i32[...], ``table`` f32[T, C],
-    computed as one exact native-bf16 MXU pass.  Differentiable w.r.t.
-    ``table``.  ``bwd`` selects the backward scatter-add implementation:
-    "xla" (the default, matching ``TracerConfig.fetch_bwd`` — safe in any
-    grad graph) or "pallas" (one-hot in VMEM only, faster standalone but
-    >~8 Pallas calls in one grad graph crash the remote TPU compiler)."""
-    out, _ = _onehot_fetch_fwd(idx, table, bwd)
+    computed as one exact native-bf16 matmul.  Differentiable w.r.t.
+    ``table``."""
+    out, _ = _onehot_fetch_fwd(idx, table)
     return out
 
 
-def _onehot_fetch_fwd(idx, table, bwd):
+def _onehot_fetch_fwd(idx, table):
     t, c = table.shape
     oh = _onehot_bf16(jax.lax.stop_gradient(idx), t)
     y = jnp.dot(oh, _limb_cols(table), preferred_element_type=jnp.float32)
     return _sum_limb_cols(y, c), (idx, t, c)
 
 
-def _onehot_fetch_bwd(bwd, res, g):
-    if bwd == "xla":
-        return _onehot_fetch_bwd_xla(res, g)
-    # The scatter-add backward runs as a Pallas kernel: XLA's form
-    # (one_hot^T @ limb_cols(g)) materialises the transposed one-hot and the
-    # barrier-pinned limb columns in HBM — measured ~3 ms per 1M-ray fetch,
-    # the whole r2 backward overhead across 6 fetches (VERDICT r2 item 2).
-    # The kernel keeps the one-hot in VMEM (~0.5 ms).  Interpret mode is
-    # auto-selected off-TPU inside pallas_scatter_add.
-    idx, t, c = res
-    from .fetch_pallas import pallas_scatter_add
-    return None, pallas_scatter_add(idx, g, t)
-
-
-def _onehot_fetch_bwd_xla(res, g):
-    """Pure-XLA backward (kept as an escape hatch for graphs where extra
-    Pallas calls must be avoided; see _onehot_fetch_bwd)."""
+def _onehot_fetch_bwd(res, g):
     idx, t, c = res
     oh = _onehot_bf16(idx, t)                       # [..., T]
     oh2 = oh.reshape(-1, t)                          # [R, T]

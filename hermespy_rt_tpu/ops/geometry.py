@@ -62,8 +62,6 @@ def reflect3(d, n):
     return d - 2.0 * dot3(d, n)[..., None] * n
 
 
-import jax  # noqa: E402  (placed here to keep the numpy-only part importable)
-
 # asin(x)/x ~ poly(x^2) on [0, 0.5], degree-5 least-squares fit on Chebyshev
 # nodes; max abs error 2.4e-9 — below 1 ulp of float32 acos outputs.
 _ASIN_POLY = tuple(np.float32(v) for v in (
@@ -81,9 +79,9 @@ def _asin_core(x, x2):
 
 
 def fast_acos(x):
-    """float32 arccos as a polynomial — XLA's acos lowers to a slow atan2
-    chain on TPU (~7 ns/element measured); this runs at VPU speed with error
-    below 1 ulp of the f32 result.
+    """float32 arccos as a polynomial (mul/add/sqrt only, no atan2 chain)
+    with error below 1 ulp of the f32 result.  Every backend uses it, and
+    the parity tests pin it.
 
     Uses asin(x) for |x| <= 0.5 and the identity
     ``acos(1-2s) = 2 asin(sqrt(s))`` for the outer range, which keeps full
@@ -104,39 +102,3 @@ def fast_acos(x):
     acos_outer = jnp.where(x >= 0, acos_pos, np.float32(np.pi) - acos_pos)
 
     return jnp.where(small, _HALF_PI - asin_inner, acos_outer)
-
-
-# exp(x) for x <= 0 via 2^n * e^r with Cody-Waite argument reduction
-# (r = x - n*ln2 computed with a split ln2 so large |x| keeps full
-# precision) and a degree-8 Taylor polynomial of e^r on |r| <= ln2/2 —
-# max rel error ~1 ulp of float32 exp.  XLA's exp lowers to a slower
-# generic chain on the TPU VPU; this stays in mul/add/round/bit ops.
-# highest-degree first (r^8 .. r^1, constant term 1)
-_EXP_POLY = tuple(np.float32(1.0 / v) for v in (
-    40320.0, 5040.0, 720.0, 120.0, 24.0, 6.0, 2.0, 1.0, 1.0))
-_LOG2E = np.float32(1.4426950408889634)
-_LN2_HI = np.float32(0.693359375)          # exact in f32 (trailing zeros)
-_LN2_LO = np.float32(-2.12194440e-4)
-
-
-def fast_exp_neg(x):
-    """float32 ``exp(x)`` for ``x <= 0`` (clamped), ~1-ulp accurate.
-
-    Used for the scattering directivity ``exp(-alpha |dtheta|)``
-    (/root/reference/src/compute_paths.c:372): the argument is never
-    positive, so the only range handling needed is the n < -126 flush to 0
-    (the XLA runtime flushes denormals anyway).  Differentiable (the
-    bit-trick scale is piecewise constant; the polynomial carries the
-    gradient, matching exp' = exp within the same error).
-    """
-    x = jnp.minimum(x, 0.0)
-    n = jnp.round(x * _LOG2E)
-    r = (x - n * _LN2_HI) - n * _LN2_LO        # |r| <= ln2/2, full precision
-    p = _EXP_POLY[0]
-    for c in _EXP_POLY[1:]:
-        p = p * r + c
-    # 2^n via exponent-field construction; flush n < -126 to zero
-    n_i = jnp.clip(n, -150.0, 0.0).astype(jnp.int32)
-    scale = jax.lax.bitcast_convert_type(
-        jnp.maximum(n_i + 127, 0) << 23, jnp.float32)
-    return p * scale

@@ -7,7 +7,7 @@ hit with ``t > eps`` (and ``t < 1e9``, the reference's ``dist`` init) wins,
 and ties resolve to the lowest triangle index (the reference's first-strict-min
 update order).  Misses return index ``-1``.
 
-TPU-native redesign: instead of a per-ray scalar loop the query is a dense
+Array-first redesign: instead of a per-ray scalar loop the query is a dense
 ``[rays x triangles]`` computation reduced over the triangle axis.  This module
 is the always-available jnp implementation (used for small batches, CPU tests
 and as the golden model for the Pallas kernel in

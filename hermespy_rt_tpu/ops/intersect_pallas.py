@@ -1,1284 +1,221 @@
-"""Pallas TPU kernel for batched ray-triangle nearest-hit queries.
+"""Pallas (Triton route) kernel for batched ray-triangle nearest-hit queries.
 
 This is the hot op of the whole framework: the reference spends >99.9% of its
 time in the equivalent scalar loop (``/root/reference/src/compute_paths.c:237-287``
 called from the bounce loop, SURVEY.md §3.2 cost model).
 
-TPU-native design — NOT a port of the scalar Möller–Trumbore:
+Design: one program owns a block of ``block_rays`` rays, keeps their origin,
+direction, range limit and running best ``(t, idx)`` in registers, and streams
+the scene through a loop over tiles of ``block_tris`` triangles.  Each tile is
+a ``[block_rays, block_tris]`` Möller–Trumbore evaluation in plain float32,
+with the op order of :func:`hermespy_rt_tpu.ops.intersect._mt_block`, so the
+kernel and the jnp reference can differ only by fma contraction.  The
+first-min argmin folds into the same pass: within a tile the lowest column
+achieving the tile minimum wins, across tiles a strict ``<`` keeps the earlier
+tile — the reference's first-strict-min update order
+(reference ``src/compute_paths.c:275-284``).
 
-The per-(ray, triangle) MT quantities are rewritten as scalar triple products
-so that each becomes a dense contraction of a per-ray feature vector against a
-per-triangle matrix.  With ``s = o - v0``, ``m = o x d``, ``Nun = e1 x e2``:
+Two early exits:
 
-    det   = e1 . (d x e2)        = -(d . Nun)
-    u_num = s  . (d x e2)        =  e2 . m - d . (e2 x v0)
-    v_num = d  . (s x e1)        = -e1 . m - d . (v0 x e1)
-    t_num = e2 . (s x e1)        =   o . Nun - (v0 . Nun)
+* a block with no live ray (``live`` false, or a negative range limit)
+  skips the triangle loop and reports all-miss — the tracer's dead-ray
+  compaction (``TracerConfig.compact_rays``);
+* ``any_hit=True`` stops a block once every live ray holds a hit within its
+  range limit (occlusion queries only consume the existence of a hit).
 
-so a ``[TILE_T, 16] @ [16, TILE_R]`` matmul per quantity (K = 16 feature
-rows: d, m, o, 1, padding) yields the whole tile of values on the MXU, and
-the VPU does the epsilon tests + masked argmin reduction over the triangle
-axis.  The grid walks (ray tiles x triangle tiles) with a running
-(best_t, best_idx) accumulator in VMEM, giving the reference's
-first-strict-min tie-break across tiles for free (ascending grid order).
-
-The returned (t, idx) are hit *decisions*: the tracer re-derives all
-differentiable quantities by gathering the chosen triangle (see
-``hermespy_rt_tpu.ops.intersect.recompute_hit_t``), so this kernel needs no
-custom VJP and runs identically under ``jax.grad``.
+The returned ``(t, idx)`` are hit *decisions*: the tracer re-derives all
+differentiable quantities by gathering the chosen triangle, so this kernel
+needs no custom VJP and runs identically under ``jax.grad``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from ..config import TracerConfig, check_block_sizes
 from ..scene.model import TriangleSoA
 from .intersect import FLT_EPS, T_MAX
 
 __all__ = ["make_pallas_intersect", "pallas_intersect"]
 
-# ray-tile grid axis is embarrassingly parallel (each owns its output
-# block); the triangle axis accumulates into it sequentially.  Declaring
-# this lets Mosaic pipeline across ray tiles.
-_GRID_SEMANTICS = pltpu.CompilerParams(
-    dimension_semantics=("parallel", "arbitrary"))
+_INF = np.float32(np.inf)
+_NO_IDX = np.int32(2**31 - 1)
 
-_BIG = np.float32(np.inf)  # plain numpy scalar: jnp constants can't be
-                           # captured by a pallas kernel body
-_NFEAT = 16
+BLOCK_RAYS = TracerConfig.block_rays
+BLOCK_TRIS = TracerConfig.block_tris
+# fastest of 2, 4 and 8 warps at the tuned 32 x 32 tile on an H100 (PERF.md)
+NUM_WARPS = 4
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _tri_derived(tris: TriangleSoA, center=None):
-    v0 = jax.lax.stop_gradient(tris.v0)
-    e1 = jax.lax.stop_gradient(tris.e1)
-    e2 = jax.lax.stop_gradient(tris.e2)
-    if center is not None:
-        v0 = v0 - center[None, :]
-    nun = jnp.cross(e1, e2)                        # [T, 3]
-    c_u = jnp.cross(e2, v0)
-    c_v = jnp.cross(v0, e1)
-    k = jnp.sum(v0 * nun, axis=-1, keepdims=True)  # [T, 1]
-    return v0, e1, e2, nun, c_u, c_v, k
-
-
-def _triangle_matrices(tris: TriangleSoA, center=None) -> jax.Array:
-    """Per-triangle contraction matrices G f32[4, Tpad, 16] (det, u, v, t rows)
-    for the MXU variant.  Computed from the SoA each call (O(T), fuses into
-    the surrounding jit) and explicitly non-differentiable: hit decisions are
-    piecewise constant.
-    """
-    v0, e1, e2, nun, c_u, c_v, k = _tri_derived(tris, center)
-    T = v0.shape[0]
-    zeros3 = jnp.zeros((T, 3), jnp.float32)
-    zeros1 = jnp.zeros((T, 1), jnp.float32)
-    pad = jnp.zeros((T, _NFEAT - 10), jnp.float32)
-    # feature order: d(3), m(3), o(3), ones(1), pad(6)
-    g_det = jnp.concatenate([-nun, zeros3, zeros3, zeros1, pad], axis=-1)
-    g_u = jnp.concatenate([-c_u, e2, zeros3, zeros1, pad], axis=-1)
-    g_v = jnp.concatenate([-c_v, -e1, zeros3, zeros1, pad], axis=-1)
-    g_t = jnp.concatenate([zeros3, zeros3, nun, -k, pad], axis=-1)
-    return jnp.stack([g_det, g_u, g_v, g_t])       # [4, T, 16]
-
-
-def _ray_features(o: jax.Array, d: jax.Array, r_pad: int,
-                  center=None) -> jax.Array:
-    """Ray feature matrix F f32[16, Rpad]: rows d, m = o x d, o, 1, padding."""
-    o = jax.lax.stop_gradient(o)
-    d = jax.lax.stop_gradient(d)
-    if center is not None:
-        o = o - center[None, :]
-    R = o.shape[0]
-    m = jnp.cross(o, d)
-    feats = jnp.concatenate(
-        [d, m, o, jnp.ones((R, 1), jnp.float32),
-         jnp.zeros((R, _NFEAT - 10), jnp.float32)], axis=-1)   # [R, 16]
-    f = feats.T                                                # [16, R]
-    if r_pad > R:
-        f = jnp.pad(f, ((0, 0), (0, r_pad - R)))
-    return f
-
-
-def _od_rows(o: jax.Array, d: jax.Array, r_pad: int,
-             center=None) -> jax.Array:
-    """Compact per-ray operand f32[8, Rpad]: rows d(3), o(3), zeros(2).
-
-    The full 16-row feature matrix (incl. m = o x d and the ones row) is
-    built IN-KERNEL from these 6 rows (:func:`_features_from_od`): building
-    it in XLA land measured ~0.9 ms per 1M-ray query (cross + concat +
-    transpose materialisations, benchmarks/logs/trace_r3l) vs VPU-trivial
-    in VMEM, and the operand read drops 64 -> 32 MB."""
-    o = jax.lax.stop_gradient(o)
-    d = jax.lax.stop_gradient(d)
-    if center is not None:
-        o = o - center[None, :]
-    R = o.shape[0]
-    od = jnp.concatenate([d.T, o.T, jnp.zeros((2, R), jnp.float32)], axis=0)
-    if r_pad > R:
-        od = jnp.pad(od, ((0, 0), (0, r_pad - R)))
-    return od
-
-
-def _features_from_od(od: jax.Array) -> jax.Array:
-    """[8, B] od rows -> [16, B] f32 feature rows (d, m = o x d, o, 1, pad);
-    component order and arithmetic identical to :func:`_ray_features`."""
-    d = od[0:3]
-    o = od[3:6]
-    m = jnp.concatenate([o[1:2] * d[2:3] - o[2:3] * d[1:2],
-                         o[2:3] * d[0:1] - o[0:1] * d[2:3],
-                         o[0:1] * d[1:2] - o[1:2] * d[0:1]], axis=0)
-    ones = jnp.ones_like(od[0:1])
-    zeros = jnp.zeros((_NFEAT - 10,) + od.shape[1:], od.dtype)
-    return jnp.concatenate([d, m, o, ones, zeros], axis=0)
-
-
-def _split_bf16(x):
-    """f32 -> (hi, lo) bf16 pair with hi + lo capturing ~16 mantissa bits."""
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _split3_bf16(x):
-    """f32 -> (h1, h2, h3) bf16 triple with h1+h2+h3 == x exactly (a 24-bit
-    mantissa splits exactly into three 8-bit bf16 limbs).
-
-    This split runs OUTSIDE the Pallas kernel (the exact1 G/F expansion), in
-    XLA land, where ``--xla_allow_excess_precision=true`` (set by this repo's
-    TPU terminal) licenses XLA to elide ``convert_f32(convert_bf16(x))``
-    round-trips — which would turn the residuals into zeros and silently
-    collapse exact1 to single-bf16 accuracy.  The optimization barriers pin
-    the rounded values (found the hard way: benchmarks/logs/probe_walk3.log).
-    The in-kernel :func:`_split_bf16` needs no barrier (Mosaic does not
-    apply that rewrite)."""
-    h1 = x.astype(jnp.bfloat16)
-    r1 = x - jax.lax.optimization_barrier(h1).astype(jnp.float32)
-    h2 = r1.astype(jnp.bfloat16)
-    h3 = (r1 - jax.lax.optimization_barrier(h2).astype(jnp.float32)
-          ).astype(jnp.bfloat16)
-    return h1, h2, h3
-
-
-# K-axis limb expansion for the "exact1" mode: the MXU pads the contraction
-# dimension 16 -> 128 regardless, so instead of paying extra *passes* for f32
-# precision (XLA HIGHEST = 6 bf16 passes), spend the free K lanes.  Each of
-# the 16 base feature columns becomes 8 columns carrying the (G limb i,
-# F limb j) combinations below; one native-bf16 [T,128]@[128,R] pass then
-# accumulates every limb product >= 2^-24 relative in f32 — the same error
-# bound as an exact f32 contraction (only the 2^-32 (h3,h3) term is dropped),
-# at 1/6 of the HIGHEST MXU work.
-_EXACT1_COMBOS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1),
-                  (1, 2), (2, 1))
-_NFEAT_EXACT1 = _NFEAT * len(_EXACT1_COMBOS)  # = 128
-
-
-def _split3_bf16_kernel(x):
-    """In-kernel (Mosaic) 3-limb split — no optimization barriers needed:
-    Mosaic does not apply XLA's excess-precision convert-elision rewrite
-    (validated on TPU: zero exact1-vs-highest decision flips on 1M bounce
-    rays, benchmarks/logs/probe_walk4.log)."""
-    h1 = x.astype(jnp.bfloat16)
-    r1 = x - h1.astype(jnp.float32)
-    h2 = r1.astype(jnp.bfloat16)
-    h3 = (r1 - h2.astype(jnp.float32)).astype(jnp.bfloat16)
-    return h1, h2, h3
-
-
-def _expand_g_exact1(g: jax.Array) -> jax.Array:
-    """[4, T, 16] f32 -> [4, T, 128] bf16 (G limb per combo slot).  Runs
-    INSIDE the kernel: the operands cross HBM as compact f32 and the limb
-    expansion costs VPU-only work in VMEM (doing it in XLA land materialises
-    ~GB-scale barrier-pinned intermediates, measured +3.5 ms per 1M-query
-    call)."""
-    limbs = _split3_bf16_kernel(g)
-    return jnp.concatenate([limbs[i] for i, _ in _EXACT1_COMBOS], axis=-1)
-
-
-def _expand_f_exact1(f: jax.Array) -> jax.Array:
-    """[16, R] f32 -> [128, R] bf16 (F limb per combo slot); in-kernel."""
-    limbs = _split3_bf16_kernel(f)
-    return jnp.concatenate([limbs[j] for _, j in _EXACT1_COMBOS], axis=0)
-
-
-def _mt_terms_mxu(g_ref, f, precision, fuse4=False):
-    """det/u/v/t for the tile via 4 [TILE_T,16]@[16,TILE_R] MXU contractions.
-
-    ``fuse4`` evaluates all four quantities in ONE ``[4*TILE_T, K] @ [K, R]``
-    pass (bit-identical: each output element's K-accumulation is unchanged;
-    only the M extent grows) — fewer MXU issues and Mosaic pipeline steps.
-    Supported for the "highest" and "exact1" modes.
-
-    ``precision`` selects the MXU strategy:
-
-    * ``"highest"`` — exact f32 (XLA's 6-bf16-pass decomposition).
-    * ``"bf16x2"`` — both operands split into two bf16 limbs (``g = gh + gl``
-      up to a ~2^-16 representation residual) and the FULL four-term product
-      ``gh@fh + gh@fl + gl@fh + gl@fl`` evaluated — 4 native-bf16 passes.
-      Because all cross terms are kept, this is *exact* (to f32 accumulation,
-      same as "highest") arithmetic on the limb-rounded operands: the result
-      equals an exact trace of a scene whose G/F entries moved by ≤ 2^-16
-      relative.  Decisions are self-consistent; flips vs "highest" need a ray
-      genuinely within the perturbation of a triangle edge.  ~1.5x "highest".
-    * ``"high"`` — bf16x3: drops the ``gl@fl`` term (3 passes, fastest).  The
-      dropped term is a true arithmetic error (~2^-16 of the term magnitude
-      sum), which cancellation can amplify — epsilon-edge decisions flip more
-      often than bf16x2.  Opt-in only.
-    """
-    if precision == "highest":
-        dot = functools.partial(jnp.dot, preferred_element_type=jnp.float32,
-                                precision=jax.lax.Precision.HIGHEST)
-        if fuse4:
-            g = g_ref[...]
-            bt = g.shape[1]
-            out = dot(g.reshape(4 * bt, g.shape[-1]), f)
-            return (out[0:bt], out[bt:2 * bt], out[2 * bt:3 * bt],
-                    out[3 * bt:4 * bt])
-        return (dot(g_ref[0], f), dot(g_ref[1], f), dot(g_ref[2], f),
-                dot(g_ref[3], f))
-
-    if precision == "exact1":
-        # expand f32 operands to bf16 K-limb columns in VMEM: one native
-        # pass per quantity IS the full-precision contraction.  The walk
-        # kernel hands G pre-expanded (bf16, 128 lanes — its manual HBM DMA
-        # needs lane-128 slices); the grid kernels expand in-kernel.
-        g = g_ref[...]
-        ge = g if g.dtype == jnp.bfloat16 else _expand_g_exact1(g)
-        fe = _expand_f_exact1(f) if f.shape[0] != _NFEAT_EXACT1 else f
-        dot = functools.partial(jnp.dot, preferred_element_type=jnp.float32)
-        if fuse4:
-            bt = ge.shape[1]
-            out = dot(ge.reshape(4 * bt, ge.shape[-1]), fe)
-            return (out[0:bt], out[bt:2 * bt], out[2 * bt:3 * bt],
-                    out[3 * bt:4 * bt])
-        return (dot(ge[0], fe), dot(ge[1], fe), dot(ge[2], fe),
-                dot(ge[3], fe))
-
-    fh, fl = _split_bf16(f)
-    dot = functools.partial(jnp.dot, preferred_element_type=jnp.float32,
-                            precision=jax.lax.Precision.DEFAULT)
-
-    if precision == "bf16x2":
-        def dot4x(g):
-            gh, gl = _split_bf16(g)
-            return (dot(gh, fh) + dot(gl, fl)) + (dot(gh, fl) + dot(gl, fh))
-        return (dot4x(g_ref[0]), dot4x(g_ref[1]), dot4x(g_ref[2]),
-                dot4x(g_ref[3]))
-
-    def dot3x(g):
-        gh, gl = _split_bf16(g)
-        return dot(gh, fh) + (dot(gh, fl) + dot(gl, fh))
-
-    return (dot3x(g_ref[0]), dot3x(g_ref[1]), dot3x(g_ref[2]),
-            dot3x(g_ref[3]))
-
-
-def _masked_t(g_ref, f, excl, j, block_tris, precision, t_lim, fuse4):
-    """(t_m [T,R] with invalid slots at +inf, rows iota) for one tile.
-
-    Epsilon semantics identical to the jnp golden
-    (:func:`hermespy_rt_tpu.ops.intersect._mt_block`).  Division is applied
-    raw (no det==0 select): a zero det yields inf/NaN quantities whose
-    comparisons are all false, and the ``|det| >= eps`` term already excludes
-    the row — decisions are bit-identical to the guarded form at one select
-    less per tile (measured on [256,1024] tiles this epilogue is ~half the
-    kernel wall, so every op counts).
-    """
-    terms = _mt_terms_mxu(g_ref, f, precision, fuse4)
-    return _mask_from_terms(terms, excl, j, block_tris, t_lim)
-
-
-def _mask_from_terms(terms, excl, j, block_tris, t_lim):
-    """The VPU epilogue half of :func:`_masked_t`, on precomputed MXU
-    terms — split out so kernels can issue several sub-tiles' contractions
-    before their epilogues (the MXU pass of sub-tile k+1 has no dependency
-    on the epilogue of sub-tile k, letting Mosaic's scheduler overlay the
-    units; ~5% kernel wall, bit-identical, probe_r4g)."""
-    det, u_num, v_num, t_num = terms
-    inv = 1.0 / det
-    u = u_num * inv
-    v = v_num * inv
-    t = t_num * inv
-    rows = jax.lax.broadcasted_iota(jnp.int32, det.shape, 0)
-    valid = ((jnp.abs(det) >= FLT_EPS)
-             & (u >= -FLT_EPS) & (u <= 1.0 + FLT_EPS)
-             & (v >= -FLT_EPS) & (u + v <= 1.0 + FLT_EPS)
-             & (t > FLT_EPS) & (t < T_MAX)
-             # per-ray excluded triangle (self-hit suppression: the caller
-             # knows the ray originates ON this triangle)
-             & (rows != excl - j * block_tris))
-    if t_lim is not None:
-        valid = valid & (t <= t_lim)
-    return jnp.where(valid, t, _BIG), rows
-
-
-def _tile_update(t_m, rows, j, block_tris, t_ref, i_ref, sl=None):
-    """Fold one sub-tile's masked distances into the running best."""
-    tile_min = jnp.min(t_m, axis=0, keepdims=True)             # [1, TILE_R]
-    # first-min rows; no "& valid" needed: invalid slots are exactly +inf, so
-    # whenever tile_min < +inf every row matching it is valid, and when
-    # tile_min == +inf the strict `improve` below rejects the tile anyway
-    tile_arg = jnp.min(
-        jnp.where(t_m == tile_min, rows, jnp.int32(2**31 - 1)),
-        axis=0, keepdims=True)
-    tile_idx = tile_arg + j * block_tris
-
-    if sl is None:
-        sl = slice(None)
-    best_t = t_ref[0:1, sl]
-    improve = tile_min < best_t                                # strict: ties
-    t_ref[0:1, sl] = jnp.where(improve, tile_min, best_t)      # keep earlier
-    i_ref[0:1, sl] = jnp.where(improve, tile_idx, i_ref[0:1, sl])
-
-
-def _tile_body(g_ref, f, excl, t_ref, i_ref, j, block_tris, precision,
-               t_lim, fuse4=False):
-    t_m, rows = _masked_t(g_ref, f, excl, j, block_tris, precision, t_lim,
-                          fuse4)
-    _tile_update(t_m, rows, j, block_tris, t_ref, i_ref)
-
-
-def _tile_body_interleaved(g_ref, od_block, ex_block, t_ref, i_ref, j,
-                           block_tris, precision, fuse4, halves=2):
-    """:func:`_tile_body` with the ray block processed as ``halves``
-    independent lane sub-tiles, ALL MXU contractions issued before ANY
-    epilogue: sub-tile k+1's dot has no dependency on sub-tile k's VPU
-    epilogue, so the scheduler overlays the units (bit-identical outputs —
-    each element's compute path is unchanged; probe_r4g: 4.24 -> 4.04
-    ms/1M-ray call at 2x1024, 4.24 -> 4.12 at 2x512)."""
-    br = od_block.shape[-1]
-    sub = br // halves
-    fs = [_features_from_od(od_block[:, k * sub:(k + 1) * sub])
-          for k in range(halves)]
-    terms = [_mt_terms_mxu(g_ref, f, precision, fuse4) for f in fs]
-    for k in range(halves):
-        sl = slice(k * sub, (k + 1) * sub)
-        t_m, rows = _mask_from_terms(terms[k], ex_block[:, sl], j,
-                                     block_tris, None)
-        _tile_update(t_m, rows, j, block_tris, t_ref, i_ref, sl)
-
-
-def _kernel(g_ref, od_ref, ex_ref, t_ref, i_ref, *, block_tris: int,
-            precision, fuse4: bool, halves: int = 2):
-    """One (ray-tile, tri-tile) step of the nearest-hit reduction."""
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        t_ref[...] = jnp.full_like(t_ref, _BIG)
-        i_ref[...] = jnp.full_like(i_ref, -1)
-
-    od = od_ref[...]
-    if od.shape[-1] >= 1024 and halves > 1:
-        _tile_body_interleaved(g_ref, od, ex_ref[...], t_ref, i_ref, j,
-                               block_tris, precision, fuse4, halves)
-    else:
-        _tile_body(g_ref, _features_from_od(od), ex_ref[...], t_ref,
-                   i_ref, j, block_tris, precision, None, fuse4)
-
-
-def _kernel_flags(flag_ref, g_ref, od_ref, ex_ref, t_ref, i_ref, *,
-                  block_tris: int, precision, fuse4: bool, halves: int = 2):
-    """Brute-force step with per-ray-tile liveness flags (dead-ray skipping).
-
-    ``flag_ref`` (SMEM i32[nRT]) is 0 when every ray in tile ``i`` is dead;
-    the whole (MXU + epilogue) evaluation is then skipped and the tile
-    reports all-miss.  Exact: a dead ray's result is never consumed (the
-    tracer masks by its activity bit), so a forced miss is indistinguishable
-    from the computed value.  Rays die in contiguous launch-index bands
-    (Fibonacci/Morton order both cluster scene-missing directions), so at
-    canyon bounce depths 1-2 (46%/24% activity) a large fraction of
-    1024-ray tiles is entirely dead — the reference walks its active bitmask
-    one ray at a time for the same effect
-    (/root/reference/src/compute_paths.c:596-605)."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        t_ref[...] = jnp.full_like(t_ref, _BIG)
-        i_ref[...] = jnp.full_like(i_ref, -1)
-
-    @pl.when(flag_ref[i] != 0)
-    def _eval():
-        od = od_ref[...]
-        if od.shape[-1] >= 1024 and halves > 1:
-            _tile_body_interleaved(g_ref, od, ex_ref[...], t_ref, i_ref, j,
-                                   block_tris, precision, fuse4, halves)
-        else:
-            _tile_body(g_ref, _features_from_od(od), ex_ref[...], t_ref,
-                       i_ref, j, block_tris, precision, None, fuse4)
-
-
-def _kernel_culled(aabb_ref, g_ref, od_ref, ex_ref, lim_ref, t_ref,
-                   i_ref, *, block_tris: int, precision, has_limit: bool,
-                   fuse4: bool = False):
-    """Nearest-hit step with per-(ray-tile, tri-tile) AABB culling.
-
-    ``aabb_ref`` holds one axis-aligned bounding box per triangle tile
-    (f32[nTiles, 8]: xmin,ymin,zmin,xmax,ymax,zmax,pad).  A slab test of
-    every ray in the tile against the box decides whether the whole
-    [TILE_T x TILE_R] evaluation can be skipped — with range-limited queries
-    (shadow rays: the reference's 1-metre occlusion window,
-    /root/reference/src/compute_paths.c:678-683) most tiles are.
-    """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        t_ref[...] = jnp.full_like(t_ref, _BIG)
-        i_ref[...] = jnp.full_like(i_ref, -1)
-
-    od = od_ref[...]                                     # f32 [8, TILE_R]
-    f = _features_from_od(od)                            # [NFEAT, TILE_R]
-    d = od[0:3, :]
-    o = od[3:6, :]
-    # slab test (branchless, inf-safe): per-axis entry/exit
-    inv = 1.0 / jnp.where(d == 0.0, 1e-30, d)
-    lo = (aabb_ref[j, 0:3][:, None] - o) * inv                 # [3, TILE_R]
-    hi = (aabb_ref[j, 3:6][:, None] - o) * inv
-    t_near = jnp.max(jnp.minimum(lo, hi), axis=0, keepdims=True)
-    t_far = jnp.min(jnp.maximum(lo, hi), axis=0, keepdims=True)
-    if has_limit:
-        t_lim = lim_ref[...]                                   # [1, TILE_R]
-        limit = jnp.minimum(t_ref[...], t_lim)
-    else:
-        t_lim = None
-        limit = t_ref[...]
-    # limit < 0 marks rays whose query is void (dead rays under compaction:
-    # t_max = -1); without the explicit limit >= 0 term a stale origin
-    # inside the scene AABB (t_near very negative) would still "reach".
-    reach = ((t_far >= 0.0) & (t_near <= t_far) & (t_near <= limit)
-             & (limit >= 0.0))
-
-    @pl.when(jnp.any(reach))
-    def _eval():
-        _tile_body(g_ref, f, ex_ref[...], t_ref, i_ref, j, block_tris,
-                   precision, t_lim, fuse4)
-
-
-def _tile_body_walk(g_ref, f, excl, t_ref, i_ref, j, block_tris, precision,
-                    t_lim, fuse4=False):
-    """Tile evaluation for the out-of-order walk: like :func:`_tile_body` but
-    ``j`` is the *actual* (prefetched) tile id and the running-min update
-    breaks exact-t ties toward the lower triangle index, reproducing the
-    reference's first-strict-min file-order semantics
-    (/root/reference/src/compute_paths.c:275-284) under any visit order."""
-    t_m, rows = _masked_t(g_ref, f, excl, j, block_tris, precision, t_lim,
-                          fuse4)
-    tile_min = jnp.min(t_m, axis=0, keepdims=True)             # [1, TILE_R]
-    tile_arg = jnp.min(
-        jnp.where(t_m == tile_min, rows, jnp.int32(2**31 - 1)),
-        axis=0, keepdims=True)
-    hit = tile_min < _BIG
-    tile_idx = jnp.where(hit, tile_arg + j * block_tris, jnp.int32(2**31 - 1))
-
-    best_t = t_ref[...]
-    best_i = i_ref[...]
-    improve = (tile_min < best_t) | (hit & (tile_min == best_t)
-                                     & (tile_idx < best_i))
-    t_ref[...] = jnp.where(improve, tile_min, best_t)
-    i_ref[...] = jnp.where(improve, tile_idx, best_i)
-
-
-def _visit_row_dma(v_hbm, vrow, vsem):
-    """Manual HBM->SMEM fetch of this ray tile's visit row, double-buffered
-    across grid steps.  Visit lists used to ship as a whole SMEM *operand*,
-    which Mosaic stages twice in full regardless of the block spec — 2 x
-    512 KB at 1M rays blew the 1 MB SMEM budget (the r2
-    ``tpu_compile_helper`` SMEM OOM, benchmarks/logs/breakdown_r2.log).
-
-    ``v_hbm`` is [nRT, S, 128] (each ray tile's row reshaped to S full
-    (8,128) sublane tiles): slicing ONE ray tile then moves whole tiles —
-    a (1, C) slice of a 2D (8,128)-tiled array is rejected by Mosaic
-    ("Slice shape along dimension 0 must be aligned to tiling (8)", the
-    crash that killed every e2e walk compile in probe_walk8-10)."""
-    i = pl.program_id(0)
-
-    def vdma(slot, r):
-        return pltpu.make_async_copy(v_hbm.at[pl.ds(r, 1)],
-                                     vrow.at[pl.ds(slot, 1)],
-                                     vsem.at[slot])
-
-    @pl.when(i == 0)
-    def _first():
-        vdma(0, 0).start()
-
-    slot = jax.lax.rem(i, 2)
-
-    @pl.when(i + 1 < pl.num_programs(0))
-    def _next():
-        vdma(1 - slot, i + 1).start()
-
-    vdma(slot, i).wait()
-    return slot
-
-
-def _visit_entry(vrow, slot, p):
-    """Flat visit-row element ``p`` from the (2, S, 128) SMEM buffer."""
-    return vrow[slot, p // 128, jax.lax.rem(p, 128)]
-
-
-def _visit_tile(vrow, slot, kk, group: int):
-    """Fine tile id for flat walk index ``kk``: visit entries are COARSE
-    groups of ``group`` consecutive fine tiles (the hierarchical prepass
-    level); group == 1 degenerates to flat tile ids."""
-    if group == 1:
-        return _visit_entry(vrow, slot, kk + 1)
-    k = kk // group
-    return _visit_entry(vrow, slot, k + 1) * group + (kk - k * group)
-
-
-def _expand_walk_features(od, precision):
-    """[8, B] od -> the walk kernels' contraction operand, built ONCE per
-    ray tile (the walk grid never revisits a ray tile): exact1 -> [128, B]
-    bf16 limb columns; other precisions -> [128, B] f32 zero-padded lanes
-    (the DMA'd G tiles are always 128 lanes wide)."""
-    f = _features_from_od(od)
-    if precision == "exact1":
-        return _expand_f_exact1(f)
-    return jnp.concatenate(
-        [f, jnp.zeros((128 - f.shape[0],) + f.shape[1:], f.dtype)], axis=0)
-
-
-def _kernel_walk_res(v_hbm, aabb_ref, g_ref, od_ref,
-                     ex_ref, lim_ref, t_ref, i_ref, vrow, vsem, *,
-                     block_tris: int, precision, has_limit: bool,
-                     fuse4: bool = False, group: int = 1,
-                     any_hit: bool = False):
-    """VMEM-resident visit-list walk for small scenes (grid = (nRT,)).
-
-    Same semantics as :func:`_kernel_walk` but the whole (pre-expanded) G
-    array lives in VMEM, so visited tiles are plain dynamic slices — no
-    manual G DMA, no double buffer.  For the 256-padded-triangle canyon the
-    expanded G is 256 KB; anything up to a few thousand triangles fits
-    comfortably, and the per-ray-tile near-to-far early-out (running
-    ``best_t`` against each tile's conservative entry distance) prunes most
-    tile evaluations — the reference's brute-force scan
-    (/root/reference/src/compute_paths.c:253-255) becomes output-sensitive.
-    """
-    t_ref[...] = jnp.full_like(t_ref, _BIG)
-    i_ref[...] = jnp.full_like(i_ref, jnp.int32(2**31 - 1))
-    slot = _visit_row_dma(v_hbm, vrow, vsem)
-    n = _visit_entry(vrow, slot, 0)
-
-    od = od_ref[...]
-    f = _expand_walk_features(od, precision)   # once per ray tile
-    d = od[0:3, :]
-    o = od[3:6, :]
-    inv = 1.0 / jnp.where(d == 0.0, 1e-30, d)
+def _kernel(tri_ref, ray_ref, ex_ref, t_ref, i_ref, *, block_tris: int,
+            n_tiles: int, any_hit: bool):
+    """One ray block against every triangle tile.
+
+    ``tri_ref`` f32[9, Tpad]: rows v0, e1, e2 (x, y, z each).
+    ``ray_ref`` f32[8, BR] block: rows d, o, t_lim, pad.  ``t_lim < 0``
+    marks a dead ray.  ``ex_ref`` i32[BR]: excluded triangle per ray."""
+    dx, dy, dz = ray_ref[0, :], ray_ref[1, :], ray_ref[2, :]
+    ox, oy, oz = ray_ref[3, :], ray_ref[4, :], ray_ref[5, :]
+    t_lim = ray_ref[6, :]
     excl = ex_ref[...]
-    t_lim = lim_ref[...] if has_limit else None
+    live = t_lim >= 0.0
+    col = (lambda x: x[:, None])
+    row = (lambda x: x[None, :])
 
-    def body(kk, _):
-        j = _visit_tile(vrow, slot, kk, group)
-        lo = (aabb_ref[j, 0:3][:, None] - o) * inv
-        hi = (aabb_ref[j, 3:6][:, None] - o) * inv
-        t_near = jnp.max(jnp.minimum(lo, hi), axis=0, keepdims=True)
-        t_far = jnp.min(jnp.maximum(lo, hi), axis=0, keepdims=True)
-        if has_limit:
-            limit = jnp.minimum(t_ref[...], t_lim)
-            if any_hit:
-                # occlusion-only queries: a recorded hit already satisfies
-                # t <= t_lim (_mask_from_terms), so the ray is DONE — void
-                # its limit so no later tile reaches it (and fully-done
-                # tiles skip their evaluation entirely)
-                limit = jnp.where(t_ref[...] < _BIG, jnp.float32(-1.0),
-                                  limit)
-        else:
-            limit = t_ref[...]
-        reach = ((t_far >= 0.0) & (t_near <= t_far) & (t_near <= limit)
-                 & (limit >= 0.0))
+    def tile(j, best_t, best_i):
+        start = j * block_tris
+        ld = lambda k: row(tri_ref[k, pl.ds(start, block_tris)])
+        v0x, v0y, v0z = ld(0), ld(1), ld(2)
+        e1x, e1y, e1z = ld(3), ld(4), ld(5)
+        e2x, e2y, e2z = ld(6), ld(7), ld(8)
+        # pvec = d x e2; det = e1 . pvec (intersect._mt_block order)
+        px = col(dy) * e2z - col(dz) * e2y
+        py = col(dz) * e2x - col(dx) * e2z
+        pz = col(dx) * e2y - col(dy) * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        sx, sy, sz = col(ox) - v0x, col(oy) - v0y, col(oz) - v0z
+        inv_det = 1.0 / jnp.where(det == 0, 1.0, det)
+        u = (sx * px + sy * py + sz * pz) * inv_det
+        # qvec = s x e1
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        v = (col(dx) * qx + col(dy) * qy + col(dz) * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ids = start + jax.lax.broadcasted_iota(jnp.int32, (1, block_tris), 1)
+        valid = ((jnp.abs(det) >= FLT_EPS)
+                 & (u >= -FLT_EPS) & (u <= 1.0 + FLT_EPS)
+                 & (v >= -FLT_EPS) & (u + v <= 1.0 + FLT_EPS)
+                 & (t > FLT_EPS) & (t < T_MAX)
+                 & (t <= col(t_lim)) & (ids != col(excl)))
+        t_m = jnp.where(valid, t, _INF)
+        tile_t = jnp.min(t_m, axis=1)
+        tile_i = jnp.min(jnp.where(t_m == col(tile_t), ids, _NO_IDX), axis=1)
+        better = tile_t < best_t                      # strict: ties keep
+        return (jnp.where(better, tile_t, best_t),    # the earlier tile
+                jnp.where(better, tile_i, best_i))
 
-        @pl.when(jnp.any(reach))
-        def _eval():
-            g_tile = g_ref[:, pl.ds(j * block_tris, block_tris), :]
-            _tile_body_walk(g_tile, f, excl, t_ref, i_ref, j,
-                            block_tris, precision, t_lim, fuse4)
-        return 0
+    best_t = jnp.full(t_lim.shape, _INF, jnp.float32)
+    best_i = jnp.full(t_lim.shape, _NO_IDX, jnp.int32)
+    if any_hit:
+        def pending(best_i):
+            return jnp.max((live & (best_i == _NO_IDX)).astype(jnp.int32))
 
-    jax.lax.fori_loop(0, n * group, body, 0)
+        def cond(carry):
+            j, _, best_i = carry
+            return (j < n_tiles) & (pending(best_i) > 0)
 
+        def body(carry):
+            j, best_t, best_i = carry
+            return (j + 1,) + tile(j, best_t, best_i)
 
-def _kernel_walk(v_hbm, aabb_ref, g_hbm, od_ref,
-                 ex_ref, lim_ref, t_ref, i_ref, g_buf, sem, vrow, vsem, *,
-                 block_tris: int, precision, has_limit: bool,
-                 fuse4: bool = False, group: int = 1,
-                 any_hit: bool = False):
-    """Visit-list walk, one grid step per RAY tile (grid = (nRT,)).
-
-    The visit row (col 0 count, cols 1.. coarse-group ids nearest-first)
-    names this ray tile's conservatively reachable triangle tiles; the
-    kernel fori-loops over their member fine tiles, double-buffering each G
-    tile from HBM by hand (``g_buf``/``sem``) so unreachable tiles are
-    neither DMA'd nor evaluated.  Because tiles arrive near-to-far, the
-    running ``best_t`` tightens fast and the per-tile reach test skips most
-    later tiles — the TPU-native answer to the reference's ``TODO BVH``
-    (/root/reference/src/compute_paths.c:246).
-
-    (A first design used scalar-prefetched BlockSpec indices over a
-    (ray tiles x visit slots) grid; Mosaic spends ~0.5-1 KB of SMEM per grid
-    step on such grids and dies above ~1024 steps — benchmarks/probe_walk2.
-    The fori form keeps the grid at nRT steps and has no such limit.)"""
-
-    t_ref[...] = jnp.full_like(t_ref, _BIG)
-    i_ref[...] = jnp.full_like(i_ref, jnp.int32(2**31 - 1))
-    slot = _visit_row_dma(v_hbm, vrow, vsem)
-    n = _visit_entry(vrow, slot, 0)
-
-    def get_dma(gslot, kk):
-        j = _visit_tile(vrow, slot, kk, group)
-        return pltpu.make_async_copy(
-            g_hbm.at[:, pl.ds(j * block_tris, block_tris), :],
-            g_buf.at[gslot], sem.at[gslot])
-
-    @pl.when(n > 0)
-    def _warmup():
-        get_dma(0, 0).start()
-
-    od = od_ref[...]
-    f = _expand_walk_features(od, precision)   # once per ray tile
-    d = od[0:3, :]
-    o = od[3:6, :]
-    inv = 1.0 / jnp.where(d == 0.0, 1e-30, d)
-    excl = ex_ref[...]
-    t_lim = lim_ref[...] if has_limit else None
-
-    # NOTE (probe_r5i2, measured NEGATIVE): gating each tile's DMA start on
-    # a fresh slab test (skip the G stream for tiles the tightened limits
-    # can no longer reach — sound, since limits only tighten) made config-5
-    # 627 -> 756 ms: the conditional start serializes the prefetch behind
-    # the reach computation and costs more than the skipped bytes save.
-    # Unconditional double-buffered streaming with evaluation-only skipping
-    # stays the shipping form.
-    def body(kk, _):
-        gslot = jax.lax.rem(kk, 2)
-
-        @pl.when(kk + 1 < n * group)
-        def _prefetch():
-            get_dma(jax.lax.rem(kk + 1, 2), kk + 1).start()
-
-        get_dma(gslot, kk).wait()
-        j = _visit_tile(vrow, slot, kk, group)
-        lo = (aabb_ref[j, 0:3][:, None] - o) * inv
-        hi = (aabb_ref[j, 3:6][:, None] - o) * inv
-        t_near = jnp.max(jnp.minimum(lo, hi), axis=0, keepdims=True)
-        t_far = jnp.min(jnp.maximum(lo, hi), axis=0, keepdims=True)
-        if has_limit:
-            limit = jnp.minimum(t_ref[...], t_lim)
-            if any_hit:
-                # occlusion-only: recorded hits already satisfy t <= t_lim,
-                # so void done rays' limits (see _kernel_walk_res); the
-                # prefetched G DMAs keep streaming but their evaluations —
-                # the expensive part — are skipped once a tile's rays are
-                # all resolved
-                limit = jnp.where(t_ref[...] < _BIG, jnp.float32(-1.0),
-                                  limit)
-        else:
-            limit = t_ref[...]
-        reach = ((t_far >= 0.0) & (t_near <= t_far) & (t_near <= limit)
-                 & (limit >= 0.0))
-
-        @pl.when(jnp.any(reach))
-        def _eval():
-            _tile_body_walk(g_buf[gslot], f, excl, t_ref, i_ref, j,
-                            block_tris, precision, t_lim, fuse4)
-        return 0
-
-    jax.lax.fori_loop(0, n * group, body, 0)
-
-
-def _prepass_kernel(abt_ref, odt_ref, limt_ref, reach_ref, key_ref):
-    """Slab-test one (ray sub-tile, box chunk) block: rays on SUBLANES,
-    boxes on LANES, so the per-box reductions (any-reach, nearest-entry
-    key) are cheap sublane reductions emitting clean [1, Cc] output rows.
-    Arithmetic is IDENTICAL to the XLA ``chunk_fn`` form —
-    ``(plane - o) * inv`` then min/max per axis — so reach sets, keys and
-    hence visit lists (and every downstream hit decision) are bit-identical
-    to the r2-r4 XLA prepass."""
-    odt = odt_ref[...]                                   # [brp, 8]
-    d = odt[:, 0:3]
-    o = odt[:, 3:6]
-    inv = 1.0 / jnp.where(d == 0.0, 1e-30, d)            # [brp, 3]
-    lim = limt_ref[...]                                  # [brp, 1]
-    abt = abt_ref[...]                                   # [8, Cc]
-    t_near = t_far = None
-    for a in range(3):
-        lo = (abt[a:a + 1, :] - o[:, a:a + 1]) * inv[:, a:a + 1]
-        hi = (abt[3 + a:4 + a, :] - o[:, a:a + 1]) * inv[:, a:a + 1]
-        na = jnp.minimum(lo, hi)                         # [brp, Cc]
-        fa = jnp.maximum(lo, hi)
-        t_near = na if a == 0 else jnp.maximum(t_near, na)
-        t_far = fa if a == 0 else jnp.minimum(t_far, fa)
-    reach_r = ((t_far >= 0.0) & (t_near <= t_far) & (t_near <= lim)
-               & (lim >= 0.0))
-    key_r = jnp.where(reach_r, jnp.maximum(t_near, 0.0), jnp.inf)
-    # outputs are [1, 1, Cc] blocks of [nRows, 1, Cpad] 3D arrays: dim 0 is
-    # one row per grid step and must stay untiled (a (1, Cc) 2D block fails
-    # the 8-sublane rule on real TPU; interpret mode does not enforce it)
-    reach_ref[...] = jnp.any(reach_r, axis=0, keepdims=True
-                             ).astype(jnp.int32)[None]
-    key_ref[...] = jnp.min(key_r, axis=0, keepdims=True)[None]
-
-
-def _prepass_reach_key_pallas(od, lim, ab_use, block_rays: int,
-                              interpret: bool):
-    """(reach bool[nRT, C], key f32[nRT, C]) via the Pallas slab-test
-    kernel.  The XLA form of this O(rays x boxes) sweep was ~26% of the
-    config-5 step wall (trace_r4h: lax.map chunks, [3, nRT, C, br]
-    broadcast materialisations through HBM); the kernel streams it through
-    VMEM in [brp, Cc] blocks.  Sub-tile results fold to walk-tile
-    granularity in XLA (any/min over the sub-tiles of each kernel ray
-    tile)."""
-    r_pad = od.shape[1]
-    n_ent = ab_use.shape[0]
-    brp = min(256, block_rays)
-    cc = 256
-    c_pad = _round_up(n_ent, cc)
-    abt = jnp.pad(ab_use, ((0, c_pad - n_ent), (0, 0))).T   # [8, Cpad]
-    odt = od.T                                               # [r_pad, 8]
-    limt = lim.reshape(r_pad, 1)
-    grid = (r_pad // brp, c_pad // cc)
-    reach, key = pl.pallas_call(
-        _prepass_kernel, grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, cc), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((brp, 8), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((brp, 1), lambda i, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[pl.BlockSpec((1, 1, cc), lambda i, j: (i, 0, j),
-                                memory_space=pltpu.VMEM),
-                   pl.BlockSpec((1, 1, cc), lambda i, j: (i, 0, j),
-                                memory_space=pltpu.VMEM)],
-        out_shape=[
-            jax.ShapeDtypeStruct((r_pad // brp, 1, c_pad), jnp.int32),
-            jax.ShapeDtypeStruct((r_pad // brp, 1, c_pad), jnp.float32),
-        ],
-        compiler_params=_GRID_SEMANTICS,
-        interpret=interpret,
-    )(abt, odt, limt)
-    reach = reach[:, 0, :]
-    key = key[:, 0, :]
-    k = block_rays // brp
-    if k > 1:
-        n_rt = r_pad // block_rays
-        reach = jnp.any(reach.reshape(n_rt, k, c_pad) != 0, axis=1)
-        key = jnp.min(key.reshape(n_rt, k, c_pad), axis=1)
+        _, best_t, best_i = jax.lax.while_loop(
+            cond, body, (jnp.int32(0), best_t, best_i))
     else:
-        reach = reach != 0
-    return reach[:, :n_ent], key[:, :n_ent]
+        n_eff = jnp.where(jnp.max(live.astype(jnp.int32)) > 0,
+                          jnp.int32(n_tiles), jnp.int32(0))
+        best_t, best_i = jax.lax.fori_loop(
+            0, n_eff, lambda j, c: tile(j, *c), (best_t, best_i))
+    t_ref[...] = best_t
+    i_ref[...] = jnp.where(best_i == _NO_IDX, -1, best_i)
 
 
-def _walk_prepass(od, lim, aabbs, block_rays: int, group: int = 1,
-                  tile_chunk: int = 32, mode: str = "ray",
-                  interpret: bool = False):
-    """Per-ray-tile visit lists for the walk kernel (all jnp, fwd-only).
-
-    Returns the packed visit array i32[nRT8, C]: col 0 the count, cols 1..
-    the reachable entries first (sorted by nearest conservative entry
-    distance).  With ``group > 1`` the slab test runs against COARSE boxes
-    (unions of ``group`` consecutive fine tiles): the prepass costs
-    O(rayTiles x coarseTiles) instead of O(rayTiles x fineTiles) — the
-    hierarchy level that keeps it from becoming the new brute force at 1M+
-    triangles (the kernel re-tests each member tile's fine AABB in-kernel,
-    so pruning quality is unchanged; only the near-to-far ordering coarsens
-    to group granularity).
-
-    ``mode`` selects the slab-test granularity:
-
-    * ``"ray"`` — every ray tests every coarse box and the tile reaches a
-      box if ANY member ray does (maximally tight lists), swept by the
-      Pallas kernel (:func:`_prepass_reach_key_pallas`) — bit-identical
-      reach/key arithmetic to the retired XLA form, which cost ~26% of
-      the config-5 step wall (trace_r4h) and is kept as ``"ray_xla"`` for
-      A/B control.
-    * ``"tile"`` — each ray tile is summarized by its origin AABB and
-      per-axis inv-direction interval; one interval-arithmetic slab test
-      per (tile, box) lower-bounds every member ray's entry distance and
-      upper-bounds its exit (O(nRT x C) — ~1000x less prepass work).
-      Strictly conservative (interval bounds enclose every member ray's
-      slab result, so no reachable box is ever dropped — the kernel
-      re-tests fine AABBs and exact geometry regardless); tightness needs
-      rays that share a direction octant and a small origin box (launch
-      coherence or mid-trace re-sorting).
-    """
-    n_tt = aabbs.shape[0]
-    if group > 1:
-        assert n_tt % group == 0
-        lo_c = aabbs[:, 0:3].reshape(-1, group, 3).min(axis=1)
-        hi_c = aabbs[:, 3:6].reshape(-1, group, 3).max(axis=1)
-        ab_use = jnp.concatenate(
-            [lo_c, hi_c, jnp.zeros((lo_c.shape[0], 2), jnp.float32)],
-            axis=-1)
-    else:
-        ab_use = aabbs
-    n_ent = ab_use.shape[0]
-
-    r_pad = od.shape[1]
-    n_rt = r_pad // block_rays
-    d = od[0:3, :].reshape(3, n_rt, block_rays)
-    o = od[3:6, :].reshape(3, n_rt, block_rays)
-    inv = 1.0 / jnp.where(d == 0.0, 1e-30, d)
-
-    if mode == "tile":
-        _BIGF = jnp.float32(3.0e37)
-        lim_r = lim.reshape(n_rt, block_rays)
-        live = lim_r >= 0.0                                   # [nRT, Rb]
-        lv = live[None]
-        o_lo = jnp.min(jnp.where(lv, o, _BIGF), axis=2)       # [3, nRT]
-        o_hi = jnp.max(jnp.where(lv, o, -_BIGF), axis=2)
-        i_lo = jnp.min(jnp.where(lv, inv, _BIGF), axis=2)
-        i_hi = jnp.max(jnp.where(lv, inv, -_BIGF), axis=2)
-        lim_max = jnp.max(jnp.where(live, lim_r, -1.0), axis=1)  # [nRT]
-        any_live = jnp.any(live, axis=1)
-
-        near_lb = jnp.full((n_rt, n_ent), -jnp.inf, jnp.float32)
-        far_ub = jnp.full((n_rt, n_ent), jnp.inf, jnp.float32)
-        for a in range(3):
-            def corners(s):                     # s: box plane coords [C]
-                diff_lo = s[None, :] - o_hi[a][:, None]       # [nRT, C]
-                diff_hi = s[None, :] - o_lo[a][:, None]
-                c = (diff_lo * i_lo[a][:, None],
-                     diff_lo * i_hi[a][:, None],
-                     diff_hi * i_lo[a][:, None],
-                     diff_hi * i_hi[a][:, None])
-                lb = jnp.minimum(jnp.minimum(c[0], c[1]),
-                                 jnp.minimum(c[2], c[3]))
-                ub = jnp.maximum(jnp.maximum(c[0], c[1]),
-                                 jnp.maximum(c[2], c[3]))
-                return lb, ub
-            ta_lb, ta_ub = corners(ab_use[:, a])
-            tb_lb, tb_ub = corners(ab_use[:, 3 + a])
-            # per ray: near_a = min(tA, tB), far_a = max(tA, tB)
-            near_lb = jnp.maximum(near_lb, jnp.minimum(ta_lb, tb_lb))
-            far_ub = jnp.minimum(far_ub, jnp.maximum(ta_ub, tb_ub))
-        reach = ((far_ub >= 0.0) & (near_lb <= far_ub)
-                 & (near_lb <= lim_max[:, None]) & any_live[:, None])
-        key = jnp.maximum(near_lb, 0.0)
-    elif mode == "ray":
-        reach, key = _prepass_reach_key_pallas(od, lim, ab_use, block_rays,
-                                               interpret)
-    else:
-        lim_t = lim.reshape(n_rt, 1, block_rays)
-
-        def chunk_fn(ab):                                 # ab: [C, 8]
-            lo = (ab[:, 0:3].T[:, None, :, None] - o[:, :, None, :]) * inv[:, :, None, :]
-            hi = (ab[:, 3:6].T[:, None, :, None] - o[:, :, None, :]) * inv[:, :, None, :]
-            # [3, nRT, C, block_rays]
-            t_near = jnp.max(jnp.minimum(lo, hi), axis=0)      # [nRT, C, R_b]
-            t_far = jnp.min(jnp.maximum(lo, hi), axis=0)
-            reach_r = ((t_far >= 0.0) & (t_near <= t_far)
-                       & (t_near <= lim_t) & (lim_t >= 0.0))
-            key_r = jnp.where(reach_r, jnp.maximum(t_near, 0.0), jnp.inf)
-            return jnp.any(reach_r, axis=-1), jnp.min(key_r, axis=-1)
-
-        pad_tt = _round_up(n_ent, tile_chunk)
-        ab_all = jnp.pad(ab_use, ((0, pad_tt - n_ent), (0, 0)))
-        # padding boxes are all-zero -> lo==hi==(0-o)*inv; they may
-        # spuriously "reach" only if a ray passes through the center point;
-        # mask them after.
-        reach_c, key_c = jax.lax.map(
-            chunk_fn, ab_all.reshape(pad_tt // tile_chunk, tile_chunk, 8))
-        reach = jnp.moveaxis(reach_c, 0, 1).reshape(n_rt, pad_tt)[:, :n_ent]
-        key = jnp.moveaxis(key_c, 0, 1).reshape(n_rt, pad_tt)[:, :n_ent]
-
-    key = jnp.where(reach, key, jnp.inf)
-    count = jnp.sum(reach, axis=1, dtype=jnp.int32)            # [nRT]
-    order = jnp.argsort(key, axis=1, stable=True).astype(jnp.int32)
-    kk = jnp.minimum(jax.lax.broadcasted_iota(jnp.int32, (n_rt, n_ent), 1),
-                     jnp.maximum(count - 1, 0)[:, None])
-    visit = jnp.take_along_axis(order, kk, axis=1)
-    # pack as [nRT, S, 128]: flat element 0 = count, 1.. = visit list.  Each
-    # ray tile's row is S whole (8,128) sublane tiles, so the kernel's 1-row
-    # DMA slice moves complete tiles — a flat (1, C) slice of a 2D tiled
-    # array violates Mosaic's 8-sublane alignment (the probe_walk8-10 /
-    # config5 compile killer).
-    s_tiles = _round_up(-(-(1 + n_ent) // 128), 8)
-    packed = jnp.zeros((n_rt, s_tiles * 128), jnp.int32)
-    packed = packed.at[:, 0].set(count)
-    packed = packed.at[:, 1:1 + n_ent].set(visit)
-    return packed.reshape(n_rt, s_tiles, 128)
+def _tri_rows(tris: TriangleSoA, t_pad: int) -> jax.Array:
+    """f32[9, t_pad]: v0, e1, e2 rows; zero padding triangles (det == 0)
+    never hit."""
+    g = jnp.concatenate([tris.v0, tris.e1, tris.e2], axis=-1).T
+    g = jax.lax.stop_gradient(g.astype(jnp.float32))
+    return jnp.pad(g, ((0, 0), (0, t_pad - g.shape[1])))
 
 
-_PRECISIONS = ("highest", "exact1", "bf16x2", "high")
-
-
-def _scene_center(tris: TriangleSoA) -> jax.Array:
-    """AABB midpoint of the real (non-padding) triangles, f32[3].
-
-    Used to re-center geometry and rays for the reduced-precision modes: the
-    MT triple-product reformulation carries absolute coordinates into the
-    contraction terms (m = o x d, c_u = e2 x v0, k = v0 . Nun), so term
-    magnitudes — and hence the bf16-limb rounding error after cancellation —
-    scale with the distance from the origin.  All four MT quantities are
-    translation-invariant, so shifting both v0 and o by the scene center is
-    free and cuts the error scale from |scene position| to |scene extent|.
-    """
-    v0 = jax.lax.stop_gradient(tris.v0)
-    e1 = jax.lax.stop_gradient(tris.e1)
-    e2 = jax.lax.stop_gradient(tris.e2)
-    real = (jnp.arange(v0.shape[0]) < tris.num_triangles)[:, None, None]
-    pts = jnp.stack([v0, v0 + e1, v0 + e2], axis=1)            # [T, 3, 3]
-    lo = jnp.where(real, pts, jnp.inf).min(axis=(0, 1))        # [3]
-    hi = jnp.where(real, pts, -jnp.inf).max(axis=(0, 1))
-    c = 0.5 * (lo + hi)
-    return jnp.where(jnp.isfinite(c), c, 0.0)
-
-
-def _tile_aabbs(tris: TriangleSoA, t_pad: int, block_tris: int,
-                center=None) -> jax.Array:
-    """Conservative AABB per triangle tile, f32[nTiles, 8]; padding rows are
-    excluded so empty tiles collapse to an unhittable inverted box."""
-    v0 = jax.lax.stop_gradient(tris.v0)
-    e1 = jax.lax.stop_gradient(tris.e1)
-    e2 = jax.lax.stop_gradient(tris.e2)
-    if center is not None:
-        v0 = v0 - center[None, :]
-    real = (jnp.arange(v0.shape[0]) < tris.num_triangles)[:, None]
-    pts = jnp.stack([v0, v0 + e1, v0 + e2], axis=1)            # [T, 3, 3]
-    lo = jnp.where(real[:, None], pts, jnp.inf).min(axis=1)    # [T, 3]
-    hi = jnp.where(real[:, None], pts, -jnp.inf).max(axis=1)
-    if t_pad > v0.shape[0]:
-        pad = t_pad - v0.shape[0]
-        lo = jnp.concatenate([lo, jnp.full((pad, 3), jnp.inf)])
-        hi = jnp.concatenate([hi, jnp.full((pad, 3), -jnp.inf)])
-    n_tiles = t_pad // block_tris
-    lo_t = lo.reshape(n_tiles, block_tris, 3).min(axis=1)
-    hi_t = hi.reshape(n_tiles, block_tris, 3).max(axis=1)
-    return jnp.concatenate(
-        [lo_t, hi_t, jnp.zeros((n_tiles, 2), jnp.float32)], axis=-1)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("block_rays", "block_tris", "interpret",
-                                    "precision", "cull", "has_t_max",
-                                    "has_live", "walk", "pre_expand",
-                                    "fuse4", "walk_group", "has_od",
-                                    "walk_prepass", "interleave",
-                                    "any_hit"))
-def _pallas_intersect_impl(o, d, tris, t_max, exclude, live, od_arg,
-                           block_rays, block_tris, interpret, precision,
-                           cull, has_t_max, has_live=False, walk=False,
-                           pre_expand=False, fuse4=False, walk_group=0,
-                           has_od=False, walk_prepass="ray", interleave=2,
-                           any_hit=False):
-    R = od_arg.shape[-1] if has_od else o.shape[0]
-    t_total = tris.v0.shape[0]
-    block_tris = min(block_tris, _round_up(t_total, 128))
+@functools.partial(jax.jit, static_argnames=(
+    "has_t_max", "any_hit", "block_rays", "block_tris", "interpret"))
+def _intersect_impl(o, d, tris, t_max, exclude, live, *, has_t_max: bool,
+                    any_hit: bool, block_rays: int, block_tris: int,
+                    interpret: bool):
+    R = o.shape[0]
     r_pad = _round_up(max(R, block_rays), block_rays)
-    t_pad = _round_up(t_total, block_tris)
+    t_pad = _round_up(tris.v0.shape[0], block_tris)
+    t_lim = jnp.full((R,), _INF, jnp.float32)
+    if has_t_max:
+        t_lim = jnp.broadcast_to(
+            jax.lax.stop_gradient(jnp.asarray(t_max, jnp.float32)), (R,))
+    if live is not None:
+        t_lim = jnp.where(live, t_lim, -1.0)
+    rays = jnp.concatenate(
+        [jax.lax.stop_gradient(d).T, jax.lax.stop_gradient(o).T,
+         t_lim[None], jnp.zeros((1, R), jnp.float32)], axis=0)
+    rays = jnp.pad(rays, ((0, 0), (0, r_pad - R)))
+    rays = rays.at[6, R:].set(-1.0)                 # padding rays are dead
+    ex = (jnp.full((R,), -1, jnp.int32) if exclude is None
+          else jax.lax.stop_gradient(jnp.asarray(exclude, jnp.int32)))
+    ex = jnp.pad(ex, (0, r_pad - R), constant_values=-1)
 
-    center = None if precision == "highest" else _scene_center(tris)
-    g = _triangle_matrices(tris, center)
-    if t_pad > t_total:
-        g = jnp.pad(g, ((0, 0), (0, t_pad - t_total), (0, 0)))
-    # compact per-ray operand: the 16-row feature matrix (m = o x d, ones)
-    # is built in-kernel (see _od_rows/_features_from_od)
-    if has_od:
-        # caller supplies the [8, R] od rows directly (the fused bounce
-        # kernels emit them — no XLA-side transpose/concat at all); only
-        # the precision-mode re-centering of the origin rows remains.
-        od = jax.lax.stop_gradient(od_arg)
-        if center is not None:
-            shift = jnp.concatenate(
-                [jnp.zeros((3,), jnp.float32), center,
-                 jnp.zeros((2,), jnp.float32)])[:, None]
-            od = od - shift
-        if r_pad > R:
-            od = jnp.pad(od, ((0, 0), (0, r_pad - R)))
-    else:
-        od = _od_rows(o, d, r_pad, center)
-    ex = jnp.full((1, r_pad), -1, jnp.int32)
-    if exclude is not None:
-        ex = ex.at[0, :R].set(
-            jax.lax.stop_gradient(jnp.asarray(exclude, jnp.int32)))
-    live_p = None
-    if has_live:
-        # per-ray liveness: dead rays' queries are skippable (their results
-        # are never consumed).  The culled/walk kernels void them through the
-        # t-limit row; the brute kernel skips whole dead ray tiles via flags.
-        live_p = jnp.zeros((r_pad,), bool).at[:R].set(
-            jax.lax.stop_gradient(live))
-    # exact1 limb expansion: G expands in XLA (a [4, Tpad, 128] bf16 array
-    # is tiny, and the in-kernel expansion — re-run for EVERY ray tile since
-    # the G tile revisits — ends in a lane-axis concat that Mosaic lowers as
-    # a relayout).  F builds AND expands IN-KERNEL from the od rows: both
-    # run along sublanes (cheap VPU), and the XLA-side build measured
-    # ~0.9 ms/M-ray query of cross+concat+transpose materialisations
-    # (benchmarks/logs/trace_r3l; pre_expand is a retired no-op).
-    if precision == "exact1" and not walk:
-        limbs_g = _split3_bf16(g)
-        g = jnp.concatenate([limbs_g[i] for i, _ in _EXACT1_COMBOS], axis=-1)
-    del pre_expand
-
-    grid = (r_pad // block_rays, t_pad // block_tris)
-    g_spec = pl.BlockSpec((4, block_tris, g.shape[-1]),
-                          lambda i, j: (0, j, 0), memory_space=pltpu.VMEM)
-    od_spec = pl.BlockSpec((8, block_rays), lambda i, j: (0, i),
-                           memory_space=pltpu.VMEM)
-    ex_spec = pl.BlockSpec((1, block_rays), lambda i, j: (0, i),
-                           memory_space=pltpu.VMEM)
-    row_spec = pl.BlockSpec((1, block_rays), lambda i, j: (0, i),
-                            memory_space=pltpu.VMEM)
-    out_specs = [row_spec, row_spec]
-    out_shape = [jax.ShapeDtypeStruct((1, r_pad), jnp.float32),
-                 jax.ShapeDtypeStruct((1, r_pad), jnp.int32)]
-
-    if walk:
-        # hierarchy level: visit entries are coarse groups of `group`
-        # consecutive fine tiles, sized so the XLA prepass tests at most
-        # ~512 coarse boxes per ray (group = 1 keeps flat tile entries)
-        n_tiles = t_pad // block_tris
-        if walk_group > 0:
-            group = walk_group
-        else:
-            group = 1
-            while n_tiles > group * 512:
-                group *= 2
-        if group > 1:
-            t_pad2 = _round_up(t_total, block_tris * group)
-            if t_pad2 > t_pad:
-                g = jnp.pad(g, ((0, 0), (0, t_pad2 - t_pad), (0, 0)))
-                t_pad = t_pad2
-        aabbs = _tile_aabbs(tris, t_pad, block_tris, center)
-        lim = jnp.full((1, r_pad), np.float32(T_MAX), jnp.float32)
-        if r_pad > R:
-            # padding rays are all-zero (o = d = 0): void their queries so
-            # the prepass never counts tiles for them
-            lim = lim.at[0, R:].set(-1.0)
-        if has_t_max:
-            tm = jnp.broadcast_to(
-                jax.lax.stop_gradient(jnp.asarray(t_max, jnp.float32)),
-                (R,))
-            lim = lim.at[0, :R].set(tm)
-        if live_p is not None:
-            lim = jnp.where(live_p[None, :], lim, -1.0)
-        visits = _walk_prepass(od, lim, aabbs, block_rays, group,
-                               mode=walk_prepass, interpret=interpret)
-        # The walk kernels take G pre-expanded (the DMA variant's manual
-        # HBM->VMEM G copies need lane-128 slices — Mosaic DMA alignment);
-        # F builds and expands IN-KERNEL once per ray tile
-        # (_expand_walk_features).  exact1 -> bf16 limb columns (barriered
-        # split per the excess-precision hazard), other precisions -> f32
-        # zero-padded K lanes (zero lanes contribute 0).
-        if precision == "exact1":
-            limbs_g = _split3_bf16(g)
-            g = jnp.concatenate([limbs_g[i] for i, _ in _EXACT1_COMBOS],
-                                axis=-1)
-        else:
-            g = jnp.pad(g, ((0, 0), (0, 0), (0, 128 - g.shape[-1])))
-        # resident variant: the whole expanded G fits VMEM for small scenes
-        resident = walk == "resident" or (
-            walk in (True, "auto")
-            and 4 * t_pad * g.shape[-1] * g.dtype.itemsize <= (4 << 20))
-        row = lambda i: (0, i)
-        common_in_specs = [
-            # visit rows must be pinned to HBM: under pl.ANY Mosaic may
-            # place the (nRT, C) i32 array in VMEM when it fits, where the
-            # manual 1-row DMA slice violates the (8,128) sublane tiling
-            # ("Slice shape along dimension 0 must be aligned to tiling
-            # (8), but is 1" — the config5 131k-tri compile failure)
-            pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),      # aabbs
-        ]
-        tail_in_specs = [
-            pl.BlockSpec((8, block_rays), row, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rays), row, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rays), row, memory_space=pltpu.VMEM),
-        ]
-        out_specs_walk = [
-            pl.BlockSpec((1, block_rays), row, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rays), row, memory_space=pltpu.VMEM),
-        ]
-        visit_scratch = [
-            pltpu.SMEM((2,) + visits.shape[1:], jnp.int32),  # visit row buf
-            pltpu.SemaphoreType.DMA((2,)),
-        ]
-        if resident:
-            kern = functools.partial(_kernel_walk_res, block_tris=block_tris,
-                                     precision=precision,
-                                     has_limit=has_t_max or has_live,
-                                     fuse4=fuse4, group=group,
-                                     any_hit=any_hit and has_t_max)
-            t_out, i_out = pl.pallas_call(
-                kern,
-                grid=(r_pad // block_rays,),
-                in_specs=common_in_specs
-                + [pl.BlockSpec(memory_space=pltpu.VMEM)]   # G, whole
-                + tail_in_specs,
-                out_specs=out_specs_walk,
-                out_shape=out_shape,
-                scratch_shapes=visit_scratch,
-                interpret=interpret,
-            )(visits, aabbs, g, od, ex, lim)
-        else:
-            kern = functools.partial(_kernel_walk, block_tris=block_tris,
-                                     precision=precision,
-                                     has_limit=has_t_max or has_live,
-                                     fuse4=fuse4, group=group,
-                                     any_hit=any_hit and has_t_max)
-            t_out, i_out = pl.pallas_call(
-                kern,
-                grid=(r_pad // block_rays,),
-                in_specs=common_in_specs
-                + [pl.BlockSpec(memory_space=pltpu.MemorySpace.HBM)]  # G
-                + tail_in_specs,
-                out_specs=out_specs_walk,
-                out_shape=out_shape,
-                scratch_shapes=[
-                    pltpu.VMEM((2, 4, block_tris, g.shape[-1]), g.dtype),
-                    pltpu.SemaphoreType.DMA((2,)),
-                ] + visit_scratch,
-                interpret=interpret,
-            )(visits, aabbs, g, od, ex, lim)
-        t_r = t_out[0, :R]
-        i_r = i_out[0, :R]
-        return t_r, jnp.where(jnp.isfinite(t_r), i_r, -1)
-
-    if cull:
-        aabbs = _tile_aabbs(tris, t_pad, block_tris, center)
-        lim = jnp.full((1, r_pad), np.float32(T_MAX), jnp.float32)
-        if has_t_max:
-            tm = jnp.broadcast_to(
-                jax.lax.stop_gradient(jnp.asarray(t_max, jnp.float32)),
-                (R,))
-            lim = lim.at[0, :R].set(tm)
-        if live_p is not None:
-            lim = jnp.where(live_p[None, :], lim, -1.0)
-        kern = functools.partial(_kernel_culled, block_tris=block_tris,
-                                 precision=precision,
-                                 has_limit=has_t_max or has_live,
-                                 fuse4=fuse4)
-        t_out, i_out = pl.pallas_call(
-            kern, grid=grid,
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # aabbs (small, whole)
-                g_spec, od_spec, ex_spec, row_spec,
-            ],
-            out_specs=out_specs, out_shape=out_shape,
-            compiler_params=_GRID_SEMANTICS,
-            interpret=interpret,
-        )(aabbs, g, od, ex, lim)
-    elif live_p is not None:
-        flags = jnp.any(live_p.reshape(-1, block_rays), axis=1
-                        ).astype(jnp.int32)                    # [nRT]
-        kern = functools.partial(_kernel_flags, block_tris=block_tris,
-                                 precision=precision, fuse4=fuse4,
-                                 halves=interleave)
-        t_out, i_out = pl.pallas_call(
-            kern, grid=grid,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),   # flags, whole
-                      g_spec, od_spec, ex_spec],
-            out_specs=out_specs, out_shape=out_shape,
-            compiler_params=_GRID_SEMANTICS,
-            interpret=interpret,
-        )(flags, g, od, ex)
-        if has_t_max:
-            tm = jnp.broadcast_to(
-                jax.lax.stop_gradient(jnp.asarray(t_max, jnp.float32)), (R,))
-            within = t_out[0, :R] <= tm
-            return (jnp.where(within, t_out[0, :R], jnp.inf),
-                    jnp.where(within, i_out[0, :R], -1))
-    else:
-        kern = functools.partial(_kernel, block_tris=block_tris,
-                                 precision=precision, fuse4=fuse4,
-                                 halves=interleave)
-        t_out, i_out = pl.pallas_call(
-            kern, grid=grid,
-            in_specs=[g_spec, od_spec, ex_spec],
-            out_specs=out_specs, out_shape=out_shape,
-            compiler_params=_GRID_SEMANTICS,
-            interpret=interpret,
-        )(g, od, ex)
-        if has_t_max:
-            tm = jnp.broadcast_to(
-                jax.lax.stop_gradient(jnp.asarray(t_max, jnp.float32)), (R,))
-            within = t_out[0, :R] <= tm
-            return (jnp.where(within, t_out[0, :R], jnp.inf),
-                    jnp.where(within, i_out[0, :R], -1))
-    return t_out[0, :R], i_out[0, :R]
+    kern = functools.partial(_kernel, block_tris=block_tris,
+                             n_tiles=t_pad // block_tris, any_hit=any_hit)
+    row = pl.BlockSpec((block_rays,), lambda i: (i,))
+    t_out, i_out = pl.pallas_call(
+        kern,
+        grid=(r_pad // block_rays,),
+        in_specs=[pl.BlockSpec((9, t_pad), lambda i: (0, 0)),
+                  pl.BlockSpec((8, block_rays), lambda i: (0, i)), row],
+        out_specs=[row, row],
+        out_shape=[jax.ShapeDtypeStruct((r_pad,), jnp.float32),
+                   jax.ShapeDtypeStruct((r_pad,), jnp.int32)],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="intersect_nearest",
+    )(_tri_rows(tris, t_pad), rays, ex)
+    return t_out[:R], i_out[:R]
 
 
 def pallas_intersect(o: jax.Array, d: jax.Array, tris: TriangleSoA,
-                     block_rays: int = 1024, block_tris: int = 256,
-                     interpret: bool = False, precision: str = "highest",
-                     t_max=None, cull: Optional[bool] = None,
-                     exclude=None, live=None,
-                     walk=False, walk_group: int = 0,
-                     pre_expand: bool = False,
-                     fuse4: bool = False,
-                     od=None,
-                     walk_prepass: str = "ray",
-                     interleave: int = 2,
-                     any_hit: bool = False) -> Tuple[jax.Array, jax.Array]:
+                     t_max=None, exclude=None, live=None,
+                     any_hit: bool = False,
+                     block_rays: int = BLOCK_RAYS,
+                     block_tris: int = BLOCK_TRIS,
+                     interpret: bool = False) -> Tuple[jax.Array, jax.Array]:
     """Nearest hit of rays (o, d) f32[R,3] against the scene; returns
-    (t f32[R] (+inf miss), idx i32[R] (-1 miss)) with the same semantics as
-    :func:`hermespy_rt_tpu.ops.intersect.intersect_jnp`.
+    (t f32[R] (+inf miss), idx i32[R] (-1 miss)) with the semantics of
+    :func:`hermespy_rt_tpu.ops.intersect.intersect_jnp` followed by the
+    ``t <= t_max`` filter.
 
-    ``precision``: MXU contraction precision — "highest" (exact f32),
-    "bf16x2" (exact product of two-limb-rounded, scene-centered operands;
-    ~1.5x) or "high" (bf16x3; fastest, decisions may flip at f32 edge
-    cases).  ``t_max`` (scalar or f32[R]) restricts the query to hits with
-    ``t <= t_max`` — range-limited occlusion queries.  ``cull`` enables
-    per-tile AABB skipping (default: on when the scene spans multiple
-    triangle tiles).
-    """
-    if cull is None:
-        # tile-level AABB culling only pays for coherent ray sets; callers
-        # that know their rays are coherent (shadow bundles to one RX,
-        # range-limited occlusion) opt in explicitly.
-        cull = False
-    has_od = od is not None
-    if has_od:
-        o = d = jnp.zeros((0, 3), jnp.float32)
-    else:
-        od = jnp.zeros((8, 0), jnp.float32)
-    return _pallas_intersect_impl(
-        o, d, tris,
-        jnp.zeros((), jnp.float32) if t_max is None else t_max,
-        exclude,
-        jnp.zeros((0,), bool) if live is None else live,
-        od,
-        block_rays, block_tris, interpret, precision, bool(cull),
-        t_max is not None, has_live=live is not None, walk=walk,
-        pre_expand=pre_expand, fuse4=fuse4, walk_group=walk_group,
-        has_od=has_od, walk_prepass=walk_prepass, interleave=interleave,
-        any_hit=any_hit)
+    ``t_max`` (scalar or f32[R]) restricts the query to hits with
+    ``t <= t_max``; ``exclude`` (i32[R]) suppresses one triangle per ray;
+    ``live`` (bool[R]) marks rays whose result is consumed — results of dead
+    rays are unspecified.  ``any_hit`` may return any qualifying hit instead
+    of the nearest.  ``interpret=True`` runs the kernel in the Pallas
+    interpreter (CPU tests)."""
+    check_block_sizes(block_rays, block_tris)
+    return _intersect_impl(
+        o, d, tris, jnp.zeros((), jnp.float32) if t_max is None else t_max,
+        exclude, live, has_t_max=t_max is not None, any_hit=bool(any_hit),
+        block_rays=int(block_rays), block_tris=int(block_tris),
+        interpret=bool(interpret))
 
 
-def make_pallas_intersect(tris: TriangleSoA, block_rays: int = 1024,
-                          block_tris: int = 256, interpret=None,
-                          precision: str = "highest", cull=None,
-                          walk=False, walk_group: int = 0,
-                          fuse4: bool = False, walk_prepass: str = "ray"):
-    """Bind a scene into an ``intersect_fn(o, d, t_max=None) -> (t, idx)``
-    closure.
+def make_pallas_intersect(tris: TriangleSoA, block_rays: int = BLOCK_RAYS,
+                          block_tris: int = BLOCK_TRIS,
+                          interpret: bool = False):
+    """Bind a scene into an ``intersect_fn(o, d, t_max=None, exclude=None,
+    live=None, any_hit=False) -> (t, idx)`` closure."""
+    check_block_sizes(block_rays, block_tris)
 
-    ``interpret=None`` auto-selects interpreter mode off-TPU so the same code
-    path runs in CPU tests (SURVEY.md §5: interpret mode as the kernel
-    "sanitizer").
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    def intersect_fn(o, d, t_max=None, exclude=None, live=None, od=None,
+    def intersect_fn(o, d, t_max=None, exclude=None, live=None,
                      any_hit=False):
-        return pallas_intersect(o, d, tris, block_rays=block_rays,
-                                block_tris=block_tris, interpret=interpret,
-                                precision=precision, t_max=t_max, cull=cull,
-                                exclude=exclude, live=live, walk=walk,
-                                walk_group=walk_group, fuse4=fuse4, od=od,
-                                walk_prepass=walk_prepass, any_hit=any_hit)
+        return pallas_intersect(o, d, tris, t_max=t_max, exclude=exclude,
+                                live=live, any_hit=any_hit,
+                                block_rays=block_rays, block_tris=block_tris,
+                                interpret=interpret)
 
     return intersect_fn

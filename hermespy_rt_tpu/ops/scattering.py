@@ -17,8 +17,6 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-from .geometry import fast_exp_neg
-
 __all__ = ["scat_coefs"]
 
 
@@ -40,22 +38,7 @@ def scat_coefs(theta_s, theta_i, s, s1_alpha, cos_ts=None, cos_ti=None,
     cos_ti = jnp.cos(theta_i) if cos_ti is None else cos_ti
     sin_ti = jnp.sin(theta_i) if sin_ti is None else sin_ti
 
-    # Sub-ulp polynomial exp on TPU (XLA's exp lowers to a slow generic
-    # chain on the TPU VPU, trace_r3m).  On CPU the library exp is kept:
-    # the polynomial's mul+add chains invite per-graph fma contraction
-    # choices, which broke the bit-EQUALITY invariant between single-device
-    # and shard_map traces (tests/test_sharding.py) — a library call is
-    # contraction-stable.  fast_exp_neg accuracy is pinned by its own test;
-    # the on-TPU path is pinned end-to-end by tpu_oracle_parity_r3.json
-    # (100% agreement vs the C reference with fast_exp in the graph).
-    # NOTE: the argument is <= 0 whenever s1_alpha >= 0 (every ITU table
-    # row).  If a *learnable* s1_alpha is driven negative, the CPU path
-    # computes/differentiates the true exp of the positive argument, while
-    # the TPU fast path saturates at exp(0) (its domain is x <= 0) — keep
-    # calibrated s1_alpha non-negative.
-    exp_fn = (fast_exp_neg if jax.default_backend() == "tpu"
-              else jnp.exp)
-    f = s * exp_fn(-s1_alpha * jnp.abs(theta_s - theta_i))
+    f = s * jnp.exp(-s1_alpha * jnp.abs(theta_s - theta_i))
 
     roughness = 1.0 / (1.0 + s1_alpha)
     specular = roughness * cos_ts

@@ -1,67 +1,29 @@
-"""Fused bounce-shading step (reflection half) as one Pallas VPU kernel.
-
-After each nearest-hit query the tracer runs ~40 elementwise ops per ray
-(differentiable hit distance, incidence trig, ITU Fresnel reflection,
-complex amplitude update, specular ray update, mesh-velocity Doppler —
-/root/reference/src/compute_paths.c:607-664).  Under XLA these lower to
-many loop fusions whose intermediates round-trip HBM (~0.4-1 ms each at 1M
-rays, the dominant forward cost after the intersection kernels — profiled
-in benchmarks/logs/trace_r3).  This module fuses the whole chain into ONE
-Pallas pass: per 4096-ray tile every intermediate lives in VMEM; HBM
-traffic collapses to reading the ray state + payload and writing the new
-state.
-
-Differentiation: the kernel is wrapped in ``jax.custom_vjp`` whose backward
-evaluates ``jax.vjp`` of the *reference jnp implementation*
-(:func:`shade_a_jnp`) at the saved primals — the elementwise chain
-recomputes inside the backward (where XLA fuses it with the cotangent math)
-and gradients are exactly those of the jnp path.  The two implementations
-share the same formulas in the same order (the Fresnel/trig helpers are the
-very same functions), so forward values agree bit-for-bit on identical
-inputs (asserted by tests/test_shade.py).
-
-Layout: every kernel operand/result keeps rays on LANES ([k, R] with k
-rows on sublanes).  The tracer's [R, 3] arrays already carry R on lanes
-physically, so the logical transposes at the call boundary are bitcasts,
-not relayouts (CLAUDE.md layout rule).
+"""Bounce shading, reflection half: the per-ray elementwise chain that runs
+after each nearest-hit query (differentiable hit distance, incidence trig,
+ITU Fresnel reflection, complex amplitude update, specular ray update,
+mesh-velocity Doppler — reference ``src/compute_paths.c:607-664``).  It is
+one elementwise chain, which XLA fuses on its own.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .fresnel import EtaPrecomputed, refl_coefs
+from .fresnel import refl_coefs
 from .geometry import cross3, dot3, fast_acos, reflect3
 from .intersect import FLT_EPS
 
-__all__ = ["shade_a", "shade_a_jnp", "ETA_FIELDS"]
-
-# canonical eta-block field order (matches the tracer's fused table columns)
-ETA_FIELDS = ("eta_re", "eta_im", "eta_abs", "eta_abs_pow2",
-              "eta_abs_inv_sqrt", "eta_sqrt_re", "eta_sqrt_im", "eta_inv_re",
-              "eta_inv_im", "r", "s", "s1_alpha")
+__all__ = ["shade_a_jnp"]
 
 SPEED_OF_LIGHT = np.float32(299792458.0)
 _CLIP = np.float32(1.0) - np.float32(FLT_EPS)
-_BLOCK = 4096
-_GEO_KEYS = ("v0", "e1", "e2", "normal", "velocity")
-
-
-def _round_up(x, m):
-    return -(-x // m) * m
 
 
 def shade_a_jnp(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
                 hit, eta, fslm, k_dop, transmit=None,
                 refraction="straight"):
-    """Reference (jnp) bounce shading, reflection half — exactly the ops the
-    tracer ran inline pre-r3, same order (golden parity pinned by the
-    oracle suite): differentiable hit distance from the gathered triangle,
+    """Bounce shading, reflection half (golden parity pinned by the oracle
+    suite): differentiable hit distance from the gathered triangle,
     algebraic incidence trig, ITU Fresnel with per-segment free-space loss,
     complex amplitude update, specular ray update with the 1e-4 self-hit
     offset (/root/reference/src/compute_paths.c:607-664), reflection
@@ -140,148 +102,3 @@ def shade_a_jnp(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
     freq2 = freq + jnp.where(live, dot3(d_ref - d, vel) * k_dop, 0.0)
     return (o2, d2, ate_re2, ate_im2, atm_re2, atm_im2, tau2, freq2,
             theta, cos_t1, ndot)
-
-
-# ---------------------------------------------------------------------------
-# Pallas forward: rays on lanes, everything per tile in VMEM.
-
-def _dot3r(a, b):
-    return a[0:1] * b[0:1] + a[1:2] * b[1:2] + a[2:3] * b[2:3]
-
-
-def _cross3r(a, b):
-    return jnp.concatenate([
-        a[1:2] * b[2:3] - a[2:3] * b[1:2],
-        a[2:3] * b[0:1] - a[0:1] * b[2:3],
-        a[0:1] * b[1:2] - a[1:2] * b[0:1]], axis=0)
-
-
-def _shade_a_kernel(sc_ref, o_ref, d_ref, st_ref, lv_ref, geo_ref, eta_ref,
-                    o2_ref, d2_ref, st2_ref, ex_ref):
-    """One 4096-ray tile of :func:`shade_a_jnp` (transmit=None), same ops in
-    the same order on [k, B] rows.  ``sc_ref`` SMEM [2] = (fslm, k_dop);
-    ``st`` rows = (ate_re, ate_im, atm_re, atm_im, tau, freq); ``ex`` rows
-    = (theta, cos_t1, ndot)."""
-    fslm = sc_ref[0]
-    k_dop = sc_ref[1]
-    o = o_ref[...]
-    d = d_ref[...]
-    st = st_ref[...]
-    live = lv_ref[...] != 0                                   # [1, B]
-    geo = geo_ref[...]
-    v0, e1, e2 = geo[0:3], geo[3:6], geo[6:9]
-    n, vel = geo[9:12], geo[12:15]
-    eta_c = eta_ref[...]
-    eta = EtaPrecomputed(**{f: eta_c[i:i + 1]
-                            for i, f in enumerate(ETA_FIELDS)})
-
-    pvec = _cross3r(d, e2)
-    det = _dot3r(e1, pvec)
-    qvec = _cross3r(o - v0, e1)
-    inv_det = 1.0 / jnp.where(det == 0, 1.0, det)
-    t = jnp.where(live, _dot3r(e2, qvec) * inv_det, 0.0)      # [1, B]
-
-    ndot = _dot3r(n, d)
-    cos_t1 = jnp.clip(jnp.abs(ndot), 0.0, _CLIP)
-    sin_t1 = jnp.sqrt(1.0 - cos_t1 * cos_t1)
-    theta = fast_acos(cos_t1)
-
-    r_te_re, r_te_im, r_tm_re, r_tm_im = refl_coefs(eta, cos_t1, sin_t1)
-    fsl2 = (fslm * t) ** 2
-    fscale = jnp.where(fsl2 > 1.0, 1.0 / jnp.where(fsl2 > 1.0, fsl2, 1.0),
-                       1.0)
-    r_te_re, r_te_im = r_te_re * fscale, r_te_im * fscale
-    r_tm_re, r_tm_im = r_tm_re * fscale, r_tm_im * fscale
-
-    ate_re, ate_im = st[0:1], st[1:2]
-    atm_re, atm_im = st[2:3], st[3:4]
-    new_ate_re = ate_re * r_te_re - ate_im * r_te_im
-    new_ate_im = ate_re * r_te_im + ate_im * r_te_re
-    new_atm_re = atm_re * r_tm_re - atm_im * r_tm_im
-    new_atm_im = atm_re * r_tm_im + atm_im * r_tm_re
-
-    hitp = o + t * d
-    d_ref_v = d - 2.0 * _dot3r(d, n) * n                      # reflect3
-    o_ref_v = hitp + jnp.float32(1e-4) * d_ref_v
-    o2_ref[...] = jnp.where(live, o_ref_v, o)
-    d2_ref[...] = jnp.where(live, d_ref_v, d)
-
-    st2_ref[...] = jnp.concatenate([
-        jnp.where(live, new_ate_re, ate_re),
-        jnp.where(live, new_ate_im, ate_im),
-        jnp.where(live, new_atm_re, atm_re),
-        jnp.where(live, new_atm_im, atm_im),
-        st[4:5] + jnp.where(live, t / SPEED_OF_LIGHT, 0.0),
-        st[5:6] + jnp.where(live, _dot3r(d_ref_v - d, vel) * k_dop, 0.0),
-    ], axis=0)
-    ex_ref[...] = jnp.concatenate([theta, cos_t1, ndot], axis=0)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _shade_a_pallas(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
-                    hit, eta, fslm, k_dop, interpret=False):
-    R = o.shape[0]
-    r_pad = _round_up(max(R, _BLOCK), _BLOCK)
-
-    def rowsT(x):                           # [R, k] -> [k, r_pad]
-        y = x.T
-        if r_pad > R:
-            y = jnp.pad(y, ((0, 0), (0, r_pad - R)))
-        return y
-
-    oT = rowsT(o)
-    dT = rowsT(d)
-    stT = rowsT(jnp.stack([ate_re, ate_im, atm_re, atm_im, tau, freq],
-                          axis=-1))
-    lvT = rowsT(live.astype(jnp.int32)[:, None])
-    geoT = rowsT(jnp.concatenate([hit[k] for k in _GEO_KEYS], axis=-1))
-    etaT = rowsT(jnp.stack([getattr(eta, f) for f in ETA_FIELDS], axis=-1))
-    sc = jnp.stack([jnp.asarray(fslm, jnp.float32).reshape(()),
-                    jnp.asarray(k_dop, jnp.float32).reshape(())])
-
-    row = lambda k: pl.BlockSpec((k, _BLOCK), lambda i: (0, i),
-                                 memory_space=pltpu.VMEM)
-    outs = pl.pallas_call(
-        _shade_a_kernel,
-        grid=(r_pad // _BLOCK,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  row(3), row(3), row(6), row(1), row(15), row(12)],
-        out_specs=[row(3), row(3), row(6), row(3)],
-        out_shape=[jax.ShapeDtypeStruct((3, r_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((3, r_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((6, r_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((3, r_pad), jnp.float32)],
-        interpret=interpret,
-    )(sc, oT, dT, stT, lvT, geoT, etaT)
-    o2T, d2T, st2T, exT = outs
-    cut = lambda x: x[:, :R]
-    o2 = cut(o2T).T
-    d2 = cut(d2T).T
-    st2 = cut(st2T)
-    ex = cut(exT)
-    return (o2, d2, st2[0], st2[1], st2[2], st2[3], st2[4], st2[5],
-            ex[0], ex[1], ex[2])
-
-
-@jax.custom_vjp
-def shade_a(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq, live,
-            hit, eta, fslm, k_dop):
-    """Fused bounce shading (reflection half), Pallas forward + jnp-vjp
-    backward.  Semantics of :func:`shade_a_jnp` with ``transmit=None``."""
-    interpret = jax.default_backend() != "tpu"
-    return _shade_a_pallas(o, d, ate_re, ate_im, atm_re, atm_im, tau, freq,
-                           live, hit, eta, fslm, k_dop, interpret=interpret)
-
-
-def _shade_a_fwd(*args):
-    return shade_a(*args), args
-
-
-def _shade_a_bwd(primals, cots):
-    # gradients of the reference jnp implementation, recomputed at the
-    # primals (remat-style: the elementwise chain fuses into the backward)
-    _, vjp = jax.vjp(shade_a_jnp, *primals)
-    return vjp(cots)
-
-
-shade_a.defvjp(_shade_a_fwd, _shade_a_bwd)

@@ -1,7 +1,7 @@
 """Multi-chip SPMD tracing: shard_map over device meshes.
 
 The reference has no parallelism of any kind (single C thread, SURVEY.md §2
-"Parallelism components: NONE").  The TPU-native scaling design follows the
+"Parallelism components: NONE").  The scaling design follows the
 semantics of the workload instead:
 
 * **Ray sharding (DP-analog)** — the flattened ``(tx*path)`` ray axis is
@@ -10,18 +10,19 @@ semantics of the workload instead:
   per-bounce outputs shard over the ``rays`` mesh axis with zero forward
   communication.  Gradients w.r.t. the replicated scene/material parameters
   are all-reduced automatically by shard_map's transpose (psum over ``rays``),
-  riding ICI and overlapping the backward pass under XLA's scheduler.
+  which XLA lowers to collectives over the device interconnect (NCCL on
+  GPUs) and overlaps with the backward pass.
 * **Triangle sharding (TP-analog)** — for scenes too large to replicate, the
   triangle axis shards over a second ``tris`` mesh axis.  The nearest-hit
   reduction is an associative min (/root/reference/src/compute_paths.c:275-284),
-  so each device computes a local argmin and the winner is combined with two
-  ``pmin`` collectives (distance, then lowest global index for the
-  reference's first-min tie-break).  The winning triangle's payload
-  (vertices, normal, velocity, material) is fetched with a masked psum —
-  exactly one shard owns the winner.
+  so each device computes a local argmin and the winner is combined by a
+  lexicographic (distance, lowest global index) min across shards — the
+  reference's first-min tie-break.  The winning triangle's payload
+  (vertices, normal, velocity, material) is read from a replicated table or
+  fetched with a masked psum — exactly one shard owns the winner.
 * **Multi-host** — ``jax.distributed.initialize`` + the same mesh spanning
-  all processes; nothing else changes (this IS the TPU-native equivalent of a
-  NCCL/MPI layer; SURVEY.md §5).
+  all processes; nothing else changes (XLA's collectives take the place of
+  a hand-written NCCL/MPI layer; SURVEY.md §5).
 """
 from __future__ import annotations
 
@@ -39,13 +40,7 @@ from ..ops.fresnel import precompute_eta
 from ..ops.geometry import fibonacci_sphere
 from ..scene.model import TriangleSoA
 from ..tracer import (LocalSceneAccess, PathsResult, _los_pass,
-                      assemble_scatter, launch_state, run_bounce_loop,
-                      scatter_scan)
-
-try:  # JAX >= 0.4.35 exposes shard_map at the top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+                      assemble_scatter, launch_state, scatter_scan)
 
 __all__ = ["default_mesh", "trace_paths_sharded", "TriShardedSceneAccess",
            "initialize_distributed"]
@@ -94,19 +89,13 @@ class TriShardedSceneAccess:
         self.axis = axis_name
         self.shard_size = tris_local.v0.shape[0]
         self.offset = jax.lax.axis_index(axis_name) * self.shard_size
-        try:
-            self.axis_size = jax.lax.axis_size(axis_name)
-        except Exception:  # pragma: no cover - older JAX
-            self.axis_size = 0
-        # Replicated-payload mode (r5): the intersect kernel's operands (the
-        # pre-expanded G matrices, ~1 KB/triangle) are what triangle
-        # sharding exists to split; the 27-column payload TABLE is 108 B per
-        # triangle and fits replicated far past the kernel's limit.  With a
-        # replicated table every per-hit fetch and the parity theta-clobber
-        # normal fetch become LOCAL gathers — zero collectives — where the
-        # r4 masked psums were 18 of the 31 collectives/step
-        # (trisharded_collectives.json).  Global hit ids index the full
-        # table directly (shard offsets already applied by intersect).
+        self.axis_size = jax.lax.axis_size(axis_name)
+        # Replicated-payload mode: the 27-column payload TABLE is 108 B per
+        # triangle and fits replicated far past the scenes triangle sharding
+        # exists for.  With a replicated table every per-hit fetch and the
+        # parity theta-clobber normal fetch become LOCAL gathers — zero
+        # collectives.  Global hit ids index the full table directly (shard
+        # offsets already applied by intersect).
         self.full = None
         if tris_full is not None:
             self.full = LocalSceneAccess(
@@ -119,15 +108,13 @@ class TriShardedSceneAccess:
         moving ONE packed f32[2, R] array (t row + exactly-f32-representable
         global index row) and folding with a local lexicographic
         compare-select — the reference's first-strict-min order under any
-        shard count.  The r4 implementation ran two chained ``pmin``
-        all-reduces (distance, then masked index), which lowered to 18
-        collective-permutes per step at 4 shards
-        (trisharded_collectives.json); the butterfly runs 2 per argmin.
-        Falls back to the double-pmin when the axis size is not a power of
-        two or indices exceed f32's 2^24 exact-integer range."""
+        shard count, with one exchange per mesh level instead of two chained
+        ``pmin`` all-reduces (distance, then masked index).  Falls back to
+        the double-pmin when the axis size is not a power of two or indices
+        exceed f32's 2^24 exact-integer range."""
         n = self.axis_size
-        total = n * self.shard_size if n else 0
-        if n and n & (n - 1) == 0 and total <= (1 << 24):
+        total = n * self.shard_size
+        if n & (n - 1) == 0 and total <= (1 << 24):
             miss = jnp.float32(1 << 24)
             i_f = jnp.where(i_glob < _I32_MAX, i_glob.astype(jnp.float32),
                             miss)
@@ -212,14 +199,20 @@ def trace_paths_sharded(tris: TriangleSoA,
                         carrier_frequency_ghz,
                         cfg: TracerConfig,
                         mesh: Optional[Mesh] = None,
-                        launch_dirs=None) -> PathsResult:
+                        launch_dirs=None,
+                        intersect_factory=None) -> PathsResult:
     """Multi-device trace over a ``(rays, tris)`` mesh.
 
     Semantically identical to :func:`hermespy_rt_tpu.tracer.trace_paths`
     (same outputs bit-for-mask); differentiable w.r.t. materials, positions,
     velocities and (replicated-mode) scene geometry, with parameter gradients
     psum-reduced across ray shards automatically.
+
+    ``intersect_factory`` (optional) maps a (shard-local) TriangleSoA to an
+    ``intersect_fn``; by default the config's backend policy picks one
+    (:func:`hermespy_rt_tpu.tracer.resolve_backend`).
     """
+    make_fn = intersect_factory or (lambda t: None)
     from ..tracer import PI, SPEED_OF_LIGHT
 
     if mesh is None:
@@ -265,7 +258,7 @@ def trace_paths_sharded(tris: TriangleSoA,
 
     # LoS is O(nrx*ntx) — replicated, outside the shard_map.
     los, rays_los, los_blocked = _los_pass(
-        LocalSceneAccess(tris, None, cfg, eta=eta),
+        LocalSceneAccess(tris, make_fn(tris), cfg, eta=eta),
         rx_pos, tx_pos, rx_vel, tx_vel, fslm, k_dop, cfg)
 
     from ..tracer import transmit_patterns
@@ -278,10 +271,9 @@ def trace_paths_sharded(tris: TriangleSoA,
     carry_specs = tuple(ray_spec(c) for c in carry0)
 
     # Payload-table placement (TracerConfig.tri_shard_table): replicating
-    # the 108 B/tri payload table while the kernel operands stay sharded
-    # turns every per-hit fetch + theta-clobber normal fetch into local
-    # gathers — zero collectives (was 18 of 31/step, r4) — at a replicated
-    # memory cost far below the kernel G matrices sharding exists to split.
+    # the 108 B/tri payload table while the triangles stay sharded turns
+    # every per-hit fetch + theta-clobber normal fetch into local gathers —
+    # zero collectives.
     t_padded = tris.v0.shape[0]
     tst = cfg.tri_shard_table
     rep_table = tri_sharded and not (
@@ -294,15 +286,13 @@ def trace_paths_sharded(tris: TriangleSoA,
             tris_f, carry = None, rest
         if tri_sharded:
             access = TriShardedSceneAccess(tris_l, "tris", cfg, eta=eta_l,
+                                           intersect_fn=make_fn(tris_l),
                                            tris_full=tris_f)
-            return scatter_scan(access, rx_pos_l, tuple(carry), fslm_l,
-                                k_dop_l, cfg)
-        # replicated scene: the full step selection (incl. the fused
-        # megakernels — pure per-ray maps, so they compose with ray
-        # sharding unchanged) runs per shard
-        access = LocalSceneAccess(tris_l, None, cfg, eta=eta_l)
-        return run_bounce_loop(access, rx_pos_l, tuple(carry), fslm_l,
-                               k_dop_l, cfg)
+        else:
+            access = LocalSceneAccess(tris_l, make_fn(tris_l), cfg,
+                                      eta=eta_l)
+        return scatter_scan(access, rx_pos_l, tuple(carry), fslm_l,
+                            k_dop_l, cfg)
 
     # per-bounce outputs: [B, NRx, R]-shaped (rays last) except dir_rx
     # [B, NRx, R, 3] and — only when keep_rays — rays o/d [B, R, 3] /
@@ -316,7 +306,7 @@ def trace_paths_sharded(tris: TriangleSoA,
          if cfg.keep_rays else (None, None, None))
     extra = (tris,) if rep_table else ()
     extra_specs = ((_tris_specs(tris, False),) if rep_table else ())
-    ys = shard_map(
+    ys = jax.shard_map(
         body, mesh=mesh,
         in_specs=(_tris_specs(tris, tri_sharded), P(), P(), P(), P())
         + extra_specs + carry_specs,

@@ -5,11 +5,12 @@ Capability parity with the reference scene model
 each with vertices, triangle vertex indices, a material id and a rigid-body
 velocity (used for Doppler).
 
-TPU-native redesign: the reference keeps an array-of-structs ``Mesh*`` and
+Array-first redesign: the reference keeps an array-of-structs ``Mesh*`` and
 walks mesh-by-mesh, triangle-by-triangle inside the intersection loop
-(``/root/reference/src/compute_paths.c:253-255``).  On TPU the entire scene is
-flattened once into a structure-of-arrays :class:`TriangleSoA` — per-triangle
-vertex/edge/normal/material/velocity arrays padded to a tile multiple — so the
+(reference ``src/compute_paths.c:253-255``).  On the accelerator the
+entire scene is flattened once into a structure-of-arrays :class:`TriangleSoA`
+— per-triangle vertex/edge/normal/material/velocity arrays padded to a tile
+multiple — so the
 intersection kernel is a dense, statically-shaped reduction over the triangle
 axis.  Padding triangles are degenerate (zero edges), which makes their
 Möller–Trumbore determinant exactly 0 and therefore can never be hit.
@@ -30,7 +31,7 @@ __all__ = ["HostMesh", "HostScene", "TriangleSoA", "flatten_scene"]
 class HostMesh:
     """One triangle mesh on the host (numpy). Mirrors the reference ``Mesh``
     struct (/root/reference/inc/scene.h:10-27) minus the lazily-computed
-    normals, which the TPU pipeline derives during flattening."""
+    normals, which the device pipeline derives during flattening."""
 
     vertices: np.ndarray          # float32[V, 3]
     indices: np.ndarray           # uint32[F, 3]

@@ -6,7 +6,7 @@ loads each ``<shape>``'s binary little-endian PLY mesh, assigns materials from
 ``id="mat-itu_<name>"`` BSDF references, applies per-mesh material/velocity
 overrides from a ``<scene>.csv`` sidecar, and can emit HRT.
 
-TPU-native redesign: a real XML parser (``xml.etree``, the default) that
+Array-first redesign: a real XML parser (``xml.etree``, the default) that
 understands Mitsuba ``<transform name="to_world">`` blocks (``<matrix>``,
 ``<translate>``, ``<rotate>``, ``<scale>``) and bakes them into the vertices —
 real Sionna/Mitsuba exports commonly transform their PLYs, which the

@@ -4,7 +4,7 @@ The reference's only error handling is ``perror`` + ``exit``
 (/root/reference/inc/common.h:20-25, SURVEY.md §5); here scenes and tracer
 inputs are validated host-side *before* device dispatch and return structured
 errors, and traced outputs can be audited for NaN/Inf contamination (the
-SPMD analogue of a sanitizer — there are no shared-memory races on TPU).
+SPMD analogue of a sanitizer — there are no shared-memory races in SPMD array code).
 """
 from __future__ import annotations
 

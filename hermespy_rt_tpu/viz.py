@@ -4,7 +4,7 @@ Capability parity with the reference OpenGL/GLUT viewer
 (``/root/reference/viz/vizrays.c``): renders the scene triangles colour-coded
 by mesh and the bounce-``k`` ray segments colour-coded by bounce depth,
 honouring the per-ray active mask.  Redesigned headless-first (matplotlib 3D,
-PNG/SVG output) since TPU hosts have no display; :class:`RayViewer` /
+PNG/SVG output) since accelerator hosts have no display; :class:`RayViewer` /
 :func:`vizrays` provide the interactive mode with the reference's controls —
 orbit camera (mouse drag = yaw/pitch, scroll = dolly), ``w``/``a``/``s``/``d``
 pan, ``q``/``e`` roll, and ``x``/``z`` bounce stepping

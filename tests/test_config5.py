@@ -1,7 +1,7 @@
 """BASELINE config-5 composition tests (CPU-sized): the Sionna city
-importer end to end, and the visit-list walk kernel running *under*
-triangle sharding on the virtual (rays, tris) mesh — the composition the
-TPU artifact (benchmarks/config5_e2e.py) exercises at 131k triangles.
+importer end to end, and the intersection kernel (interpret mode) running
+*under* triangle sharding on the virtual (rays, tris) mesh — the composition
+``chip_smoke.py --multi`` exercises at 131k triangles on four GPUs.
 
 Reference anchor: the scale regime the reference concedes with its
 ``TODO BVH`` comment (/root/reference/src/compute_paths.c:246) and the
@@ -21,6 +21,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from config5_scene import make_city  # noqa: E402
 from hermespy_rt_tpu.config import TracerConfig  # noqa: E402
 from hermespy_rt_tpu.materials import default_materials  # noqa: E402
+from hermespy_rt_tpu.ops.intersect_pallas import make_pallas_intersect  # noqa: E402
 from hermespy_rt_tpu.parallel import default_mesh, trace_paths_sharded  # noqa: E402
 from hermespy_rt_tpu.scene import (flatten_scene, load_scene,  # noqa: E402
                                    random_soup_scene)
@@ -29,6 +30,13 @@ from hermespy_rt_tpu.tracer import trace_paths  # noqa: E402
 RX = np.array([[4.0, -3.0, 1.5]], np.float32)
 TX = np.array([[-6.0, 5.0, 4.0]], np.float32)
 Z = np.zeros((1, 3), np.float32)
+
+
+def _kernel(tris):
+    """Interpret-mode kernel with small tiles, so a CPU-sized shard still
+    spans several ray blocks and triangle tiles."""
+    return make_pallas_intersect(tris, block_rays=64, block_tris=32,
+                                 interpret=True)
 
 
 def test_city_scene_imports(tmp_path):
@@ -50,9 +58,9 @@ def test_city_scene_imports(tmp_path):
 
 @pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4)])
 def test_walk_under_tri_sharding(mesh_shape):
-    """Walk kernel inside TriShardedSceneAccess must reproduce the
-    single-device jnp trace bit-for-bit (each shard walks its own slab;
-    the cross-shard pmin tie-break is unaffected by visit order)."""
+    """The intersection kernel inside TriShardedSceneAccess must reproduce
+    the single-device jnp trace bit-for-bit (each shard scans its own slab;
+    the cross-shard lexicographic min keeps the first-min tie-break)."""
     assert len(jax.devices()) >= 8, "conftest must force 8 CPU devices"
     tris = flatten_scene(random_soup_scene(300, seed=5, extent=12.0),
                          sort_triangles=True)
@@ -60,12 +68,10 @@ def test_walk_under_tri_sharding(mesh_shape):
                             keep_rays=False)
     ref = trace_paths(tris, default_materials(), RX, TX, Z, Z, 3.0,
                       base_cfg)
-    cfg = TracerConfig(num_paths=256, num_bounces=2, backend="pallas",
-                       keep_rays=False, walk="resident", block_rays=256,
-                       block_tris=64, precision="highest")
     mesh = default_mesh(*mesh_shape)
-    got = trace_paths_sharded(tris, default_materials(), RX, TX, Z, Z, 3.0,
-                              cfg, mesh=mesh)
+    got = jax.jit(lambda m: trace_paths_sharded(
+        tris, m, RX, TX, Z, Z, 3.0, base_cfg, mesh=mesh,
+        intersect_factory=_kernel))(default_materials())
     for field in ("a_te", "a_tm", "tau", "directions_rx"):
         np.testing.assert_array_equal(
             np.asarray(getattr(ref.scatter, field)),
@@ -73,8 +79,8 @@ def test_walk_under_tri_sharding(mesh_shape):
 
 
 def test_any_hit_shadow_walk_trace_invariant():
-    """Physical-parity traces route shadow queries through the walk
-    kernel's any-hit early-out (r5).  Although the raw (t, idx) a shadow
+    """Physical-parity traces route shadow queries through the kernel's
+    any-hit early-out.  Although the raw (t, idx) a shadow
     query returns may then name a different (non-nearest) blocker, every
     trace output must be bit-identical to the nearest-hit jnp path: the
     physical mode consumes only `blocked` from the query, and recorded
@@ -86,9 +92,7 @@ def test_any_hit_shadow_walk_trace_invariant():
     ref = trace_paths(tris, default_materials(), RX, TX, Z, Z, 3.0,
                       TracerConfig(backend="jnp", **kw))
     got = trace_paths(tris, default_materials(), RX, TX, Z, Z, 3.0,
-                      TracerConfig(backend="pallas", walk="resident",
-                                   block_rays=256, block_tris=64,
-                                   precision="highest", **kw))
+                      TracerConfig(**kw), intersect_fn=_kernel(tris))
     occl = np.abs(np.asarray(got.scatter.a_te)) == 0
     assert occl.any() and not occl.all(), "fixture must mix blocked/clear"
     for field in ("a_te", "a_tm", "tau", "directions_rx", "freq_shift"):
@@ -97,47 +101,24 @@ def test_any_hit_shadow_walk_trace_invariant():
             np.asarray(getattr(got.scatter, field)), err_msg=field)
 
 
-def test_walk_prepass_pallas_matches_xla():
-    """The r5 Pallas slab-test prepass (walk_prepass="ray") must reproduce
-    the retired XLA sweep ("ray_xla") bit-for-bit: identical reach/key
-    arithmetic means identical visit lists and hence identical hits.
-    (Replaces the r4 resort bit-identity test — the resort knob was
-    deleted in r5 as measured-negative with an unenforceable contract.)"""
-    tris = flatten_scene(random_soup_scene(300, seed=5, extent=12.0),
-                         sort_triangles=True)
-    kw = dict(num_paths=256, num_bounces=3, backend="pallas",
-              keep_rays=False, walk="resident", block_rays=256,
-              block_tris=64, precision="highest")
-    mats = default_materials()
-    ref = trace_paths(tris, mats, RX, TX, Z, Z, 3.0,
-                      TracerConfig(**kw, walk_prepass="ray_xla"))
-    got = trace_paths(tris, mats, RX, TX, Z, Z, 3.0,
-                      TracerConfig(**kw, walk_prepass="ray"))
-    for field in ("a_te", "a_tm", "tau", "directions_rx"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(ref.scatter, field)),
-            np.asarray(getattr(got.scatter, field)), err_msg=field)
-
-
 def test_walk_sharded_gradients_finite():
-    """fwd+bwd through walk + tri-sharding: material and TX-position
+    """fwd+bwd through the kernel + tri-sharding: material and TX-position
     gradients must be finite and nonzero (the config-5 training step)."""
     tris = flatten_scene(random_soup_scene(300, seed=5, extent=12.0),
                          sort_triangles=True)
-    cfg = TracerConfig(num_paths=128, num_bounces=2, backend="pallas",
-                       keep_rays=False, walk="resident", block_rays=128,
-                       block_tris=64, precision="highest",
+    cfg = TracerConfig(num_paths=128, num_bounces=2, keep_rays=False,
                        parity="physical")
     mesh = default_mesh(4, 2)
     mats = default_materials()
     tx = jnp.asarray(TX)
 
     def loss_fn(m, tx_):
-        r = trace_paths_sharded(tris, m, RX, tx_, Z, Z, 3.0, cfg, mesh=mesh)
+        r = trace_paths_sharded(tris, m, RX, tx_, Z, Z, 3.0, cfg, mesh=mesh,
+                                intersect_factory=_kernel)
         return (jnp.sum(jnp.abs(r.scatter.a_te) ** 2)
                 + jnp.sum(jnp.abs(r.scatter.a_tm) ** 2)) * 1e9
 
-    v, g = jax.value_and_grad(loss_fn, argnums=(0, 1))(mats, tx)
+    v, g = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(mats, tx)
     leaves = np.concatenate([np.asarray(x).ravel()
                              for x in jax.tree_util.tree_leaves(g)])
     assert np.isfinite(leaves).all()

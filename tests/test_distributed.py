@@ -1,4 +1,4 @@
-"""Multi-process jax.distributed coverage (VERDICT r1 missing #3):
+"""Multi-process jax.distributed coverage:
 ``initialize_distributed`` is exercised by two REAL processes on CPU, and the
 cross-process mesh traces the same values as single-process.
 

@@ -70,42 +70,12 @@ def test_under_jit_and_vjp_nondiff_idx():
     assert g.shape == table.shape
 
 
-def test_pallas_fetch_matches_take():
-    from hermespy_rt_tpu.ops.fetch_pallas import pallas_onehot_fetch
-    table = _table(t=64, c=27, seed=8)
-    idx = jnp.asarray(np.random.default_rng(9).integers(0, 64, size=1500),
-                      jnp.int32)
-    got = pallas_onehot_fetch(idx, table, True)
-    want = take_fetch(idx, table)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    # 2-D leading shape
-    idx2 = idx.reshape(3, 500)
-    got2 = pallas_onehot_fetch(idx2, table, True)
-    assert got2.shape == (3, 500, 27)
-    np.testing.assert_array_equal(np.asarray(got2),
-                                  np.asarray(want).reshape(3, 500, 27))
-
-
-def test_pallas_fetch_backward_matches_take():
-    from hermespy_rt_tpu.ops.fetch_pallas import pallas_onehot_fetch
-    table = _table(t=32, c=12, seed=10)
-    idx = jnp.asarray(np.random.default_rng(11).integers(0, 32, size=2500),
-                      jnp.int32)
-    w = jnp.asarray(np.random.default_rng(12)
-                    .standard_normal((2500, 12)).astype(np.float32))
-    g1 = jax.grad(lambda t: jnp.sum(pallas_onehot_fetch(idx, t, True) * w))(table)
-    g2 = jax.grad(lambda t: jnp.sum(take_fetch(idx, t) * w))(table)
-    # every per-ray contribution is exact; the two paths only differ in f32
-    # accumulation ORDER (tile-sequential vs scatter), so few-ulp deltas
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
-                               rtol=1e-5, atol=1e-5)
-
-
 def test_tracer_gather_variants_agree():
-    """All gather strategies give identical traces (CPU/interpret)."""
-    import jax as _jax
+    """Both gather strategies give identical traces, with the intersection
+    kernel in interpret mode."""
     from hermespy_rt_tpu.config import TracerConfig
     from hermespy_rt_tpu.materials import default_materials
+    from hermespy_rt_tpu.ops.intersect_pallas import make_pallas_intersect
     from hermespy_rt_tpu.scene import flatten_scene, box_scene
     from hermespy_rt_tpu.tracer import trace_paths
     tris = flatten_scene(box_scene())
@@ -113,35 +83,12 @@ def test_tracer_gather_variants_agree():
     rx = jnp.asarray([[1.0, 2.0, 1.5]])
     tx = jnp.asarray([[-2.0, -1.0, 2.5]])
     z = jnp.zeros((1, 3))
+    kernel = make_pallas_intersect(tris, interpret=True)
     outs = []
-    for gather in ("take", "onehot", "onehot_pallas"):
-        cfg = TracerConfig(num_paths=128, num_bounces=2, backend="pallas",
-                           keep_rays=False, gather=gather)
-        r = trace_paths(tris, mats, rx, tx, z, z, jnp.float32(3.0), cfg)
+    for gather in ("take", "onehot"):
+        cfg = TracerConfig(num_paths=128, num_bounces=2, keep_rays=False,
+                           gather=gather)
+        r = trace_paths(tris, mats, rx, tx, z, z, jnp.float32(3.0), cfg,
+                        intersect_fn=kernel)
         outs.append(np.asarray(r.scatter.a_te))
     np.testing.assert_array_equal(outs[0], outs[1])
-    np.testing.assert_array_equal(outs[0], outs[2])
-
-
-def test_fetch_t_bwd_cols_slim_matches():
-    """bwd_cols=(15, 27) (the grad_geometry=False contract: geometry
-    cotangents identically zero) must produce the same table gradient as
-    the full backward when the cotangent is zero outside the range."""
-    import jax
-    import jax.numpy as jnp
-    from hermespy_rt_tpu.ops.fetch_pallas import pallas_onehot_fetch_t
-    rng = np.random.default_rng(3)
-    T, C, R = 128, 27, 5000
-    table = jnp.asarray(rng.normal(size=(T, C)).astype(np.float32) * 11.0)
-    idx = jnp.asarray(rng.integers(0, T, R).astype(np.int32))
-    w = jnp.asarray(rng.normal(size=(12, R)).astype(np.float32))
-
-    def loss(tb, bwd_cols):
-        rowt = pallas_onehot_fetch_t(idx, tb, True, "xla", bwd_cols)
-        eta = rowt[15:27]          # only eta rows reach the loss
-        return jnp.sum((eta * w) ** 2)
-
-    g_full = jax.grad(lambda tb: loss(tb, None))(table)
-    g_slim = jax.grad(lambda tb: loss(tb, (15, 27)))(table)
-    np.testing.assert_array_equal(np.asarray(g_full), np.asarray(g_slim))
-    assert np.asarray(g_slim)[:, :15].sum() == 0.0

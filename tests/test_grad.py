@@ -127,7 +127,7 @@ def test_vertex_grads_flow():
 
 def test_velocity_grads_vs_fd(reflector_tris):
     """FD check for TX/RX velocity gradients through the Doppler outputs
-    (VERDICT r1 weak #7: velocities previously only got finiteness checks).
+    (velocities, not only finiteness).
     Physical parity mode so per-index LoS velocities carry gradient."""
     tris = reflector_tris
     mats = default_materials()
@@ -192,7 +192,7 @@ def test_mesh_velocity_grads_vs_fd(reflector_tris):
 
 
 def test_carrier_frequency_grads_vs_fd(reflector_tris):
-    """FD check for the carrier-frequency gradient (VERDICT r1 weak #7).
+    """FD check for the carrier-frequency gradient.
     f enters the Friis clamps, the ITU eta power laws and the Doppler
     multiplier; checked away from the max(1, .) clamp corners."""
     tris = reflector_tris

@@ -214,7 +214,7 @@ def test_physical_mode_runs():
 
 
 def test_canyon_parity_flips_are_marginal():
-    """Flip taxonomy for the oracle comparison (VERDICT r1 weak #6): slots
+    """Flip taxonomy for the oracle comparison: slots
     where we and the C reference disagree on the hit/blocked mask must be
     provably marginal — the ray chain that produced them involves an f64
     Möller–Trumbore quantity within epsilon of a decision boundary (a

@@ -1,5 +1,6 @@
 """Large-scene path tests (BASELINE.json config 5: 100k+-triangle imported
-meshes).  CPU-sized here; the TPU-scale measurements live in benchmarks/."""
+meshes).  CPU-sized here; chip_smoke.py runs the 131k-triangle city on a
+GPU."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,7 +14,7 @@ from hermespy_rt_tpu.scene.model import _morton_order
 
 def test_large_scene_kernel_agreement(rng):
     """Multi-tile triangle streaming (T >> block_tris) agrees with the jnp
-    reference; the 'take' gather path (T > 4096) works."""
+    reference."""
     scene = random_soup_scene(6000, seed=21, extent=80.0)
     soa = flatten_scene(scene, pad_to=128)
     assert soa.pad_triangles >= 6000
@@ -23,11 +24,12 @@ def test_large_scene_kernel_agreement(rng):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     t1, i1 = intersect_jnp(jnp.asarray(o), jnp.asarray(d), soa,
                            chunk_size=256)
-    fn = make_pallas_intersect(soa, block_tris=256, interpret=True)
+    fn = make_pallas_intersect(soa, block_rays=128, block_tris=256,
+                               interpret=True)
     t2, i2 = fn(jnp.asarray(o), jnp.asarray(d))
     agree = (np.asarray(i1) == np.asarray(i2)).mean()
     assert agree > 0.995
-    # flip taxonomy (VERDICT r1 weak #6): every disagreement must be a
+    # flip taxonomy: every disagreement must be a
     # provable f32 tie or barycentric-edge case, not an arbitrary error
     from tests.utils import assert_flips_explained
     assert_flips_explained(soa, o, d, t1, i1, t2, i2,
@@ -44,8 +46,8 @@ def test_large_scene_trace_uses_take_gather():
     assert (np.abs(a) > 0).sum() > 0
 
 
-def test_take_gather_matches_onehot_with_grads():
-    """The big-table 'take' fetch (r5: geometry gather + material-indirect
+def test_take_gather_matches_onehot_with_grads(street_tris):
+    """The big-table 'take' fetch (geometry gather + material-indirect
     eta through the per-material table) must be value-identical to the
     'onehot' fetch — eta[mat][idx] == eta[mat[idx]] bit-exactly — and its
     material gradients must match (same chain, the backward contracts over
@@ -54,11 +56,9 @@ def test_take_gather_matches_onehot_with_grads():
     import jax
     from hermespy_rt_tpu.config import TracerConfig
     from hermespy_rt_tpu.materials import default_materials
-    from hermespy_rt_tpu.scene import load_hrt
     from hermespy_rt_tpu.tracer import trace_paths
 
-    tris = flatten_scene(
-        load_hrt("/root/reference/scenes/simple_street_canyon_with_cars.hrt"))
+    tris = street_tris
     mats = default_materials()
     rx = jnp.asarray([[10.0, 5.0, 2.0]], jnp.float32)
     tx = jnp.asarray([[-20.0, -10.0, 10.0]], jnp.float32)

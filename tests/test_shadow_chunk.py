@@ -5,7 +5,7 @@ nearest-hit call; above ``TracerConfig.rx_query_rays`` the call is split
 into RX groups run sequentially under ``lax.map``
 (``hermespy_rt_tpu.tracer._shadow_intersect``).  The chunked branch only
 activates above 4M shadow rays in production, so this pins it at a tiny
-threshold (ADVICE r2 item: previously untested).
+threshold.
 """
 import jax.numpy as jnp
 import numpy as np
