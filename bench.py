@@ -5,8 +5,8 @@ training step on one GPU (BASELINE.json north star).
 Metric: queries/s where "queries" = Möller–Trumbore nearest-hit queries, the
 SURVEY.md §3.2 cost model (num_bounces * num_tx * num_paths * (1 + num_rx)
 queries per trace), measured over the jitted forward+backward step of
-``chip_smoke.make_step`` (loss = scatter gain power, gradients w.r.t. the
-full material table) at 2^20 paths and 3 bounces.
+``benchmarks/train_step.py::make_step`` (loss = scatter gain power,
+gradients w.r.t. the full material table) at 2^20 paths and 3 bounces.
 
 Prints one JSON line per row — the generated street at nrx = 1 (the
 headline), 4 and 16, and the generated city at nrx = 1 — each naming the
@@ -17,10 +17,13 @@ import os
 import sys
 import tempfile
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "benchmarks"))
 
-from chip_smoke import (BOUNCES, FULL_RAYS, ITERS, make_scenes,  # noqa: E402
-                        phase_device, run_step, step_config)
+from train_step import (BOUNCES, FULL_RAYS, ITERS, gpu_device,  # noqa: E402
+                        make_scenes, make_step, positions, queries_per_step,
+                        step_config, time_call)
 
 ROWS = (("street", 1), ("street", 4), ("street", 16), ("city", 1))
 
@@ -29,14 +32,18 @@ def measure_step(tris, scene="street", num_paths=FULL_RAYS,
                  num_bounces=BOUNCES, num_rx=1, iters=ITERS):
     """Queries/s, seconds per step and queries per step of the fwd+bwd
     step on ``tris`` (one of the generated scenes)."""
+    from hermespy_rt_tpu.materials import default_materials
     cfg = step_config(scene, num_paths, num_bounces=num_bounces)
-    rec = run_step(f"{scene} nrx={num_rx}", tris, cfg, scene, num_rx, iters)
-    queries = num_bounces * num_paths * (1 + num_rx)
-    return rec["queries_per_s"], rec["step_s"], queries
+    rx, tx = positions(scene, num_rx)
+    mats = default_materials()
+    compiled = make_step(tris, cfg, rx, tx).lower(mats).compile()
+    dt, _ = time_call(compiled, mats, iters=iters)
+    queries = queries_per_step(cfg, num_rx, tx.shape[0])
+    return queries / dt, dt, queries
 
 
 def main():
-    dev, smi = phase_device()
+    dev, smi = gpu_device()
     from hermespy_rt_tpu.utils import enable_compile_cache
     enable_compile_cache()
     import jax

@@ -153,7 +153,7 @@ def bench_main(argv=None):
         "hrt_bench", os.path.join(root, "bench.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    dev, smi = mod.phase_device()
+    dev, smi = mod.gpu_device()
     from .utils import enable_compile_cache
     enable_compile_cache()
     with tempfile.TemporaryDirectory() as work:

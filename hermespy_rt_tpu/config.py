@@ -6,16 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["TracerConfig", "check_block_sizes"]
-
-
-def check_block_sizes(block_rays, block_tris) -> None:
-    """The intersection kernel's tiles must be power-of-two ints (Triton
-    block shapes); ``bool`` is not a size."""
-    for name, v in (("block_rays", block_rays), ("block_tris", block_tris)):
-        if (isinstance(v, bool) or not isinstance(v, int) or v <= 0
-                or v & (v - 1)):
-            raise ValueError(f"{name} must be a power-of-two int, got {v!r}")
+__all__ = ["TracerConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +28,6 @@ class TracerConfig:
                    kernel; needs a GPU), or "auto" (the kernel on a GPU, jnp
                    on a CPU; see tracer.resolve_backend).
       ray_chunk:   ray-axis chunk for the jnp backend's lax.map blocking.
-      block_rays / block_tris: the kernel's ray block and triangle tile
-                   (powers of two).
       unroll_bounces: unroll the bounce scan (num_bounces is small; unrolling
                    lets XLA overlap independent per-bounce work).
       keep_rays:   also return per-bounce ray segments + active masks
@@ -51,10 +40,6 @@ class TracerConfig:
     parity: str = "reference"
     backend: str = "auto"
     ray_chunk: int = 4096
-    # tuned on an H100 at the street and city scenes (PERF.md: 32 x 32 with
-    # 4 warps was fastest on both of 27 tile/warp combinations)
-    block_rays: int = 32
-    block_tris: int = 32
     unroll_bounces: bool = True
     # bounce-scan backward policy (unroll_bounces=False only): "save_all"
     # stores per-bounce intermediates so the backward never re-runs the
@@ -167,7 +152,6 @@ class TracerConfig:
             raise ValueError(f"backend must be 'jnp', 'pallas' or 'auto', got {self.backend!r}")
         if self.num_paths <= 0 or self.num_bounces <= 0:
             raise ValueError("num_paths and num_bounces must be > 0")
-        check_block_sizes(self.block_rays, self.block_tris)
         if self.remat not in ("none", "hits"):
             raise ValueError(f"remat must be 'none' or 'hits', got "
                              f"{self.remat!r}")

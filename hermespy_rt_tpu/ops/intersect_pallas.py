@@ -38,7 +38,6 @@ import numpy as np
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plgpu
 
-from ..config import TracerConfig, check_block_sizes
 from ..scene.model import TriangleSoA
 from .intersect import FLT_EPS, T_MAX
 
@@ -47,14 +46,24 @@ __all__ = ["make_pallas_intersect", "pallas_intersect"]
 _INF = np.float32(np.inf)
 _NO_IDX = np.int32(2**31 - 1)
 
-BLOCK_RAYS = TracerConfig.block_rays
-BLOCK_TRIS = TracerConfig.block_tris
-# fastest of 2, 4 and 8 warps at the tuned 32 x 32 tile on an H100 (PERF.md)
+# tuned on an H100 at the street and city scenes (PERF.md: a 32 x 32 tile
+# with 4 warps was fastest on both of 27 tile/warp combinations)
+BLOCK_RAYS = 32
+BLOCK_TRIS = 32
 NUM_WARPS = 4
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def check_block_sizes(block_rays, block_tris) -> None:
+    """The kernel's tiles must be power-of-two ints (Triton block shapes);
+    ``bool`` is not a size."""
+    for name, v in (("block_rays", block_rays), ("block_tris", block_tris)):
+        if (isinstance(v, bool) or not isinstance(v, int) or v <= 0
+                or v & (v - 1)):
+            raise ValueError(f"{name} must be a power-of-two int, got {v!r}")
 
 
 def _kernel(tri_ref, ray_ref, ex_ref, t_ref, i_ref, *, block_tris: int,

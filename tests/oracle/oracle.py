@@ -1,10 +1,10 @@
 """Golden-test oracle: the reference C tracer compiled to a shared library.
 
-Builds ``/root/reference/src/{compute_paths,scene,materials}.c`` (GL-free core)
-into ``liboracle.so`` on first use and exposes ``compute_paths`` through
-ctypes.  This *runs* the reference for comparison — no reference code is
+Builds the reference checkout's ``src/{compute_paths,scene,materials}.c``
+(GL-free core) into ``liboracle.so`` on first use and exposes
+``compute_paths`` through ctypes.  This *runs* the reference for comparison — no reference code is
 copied into the framework.  Note the ``size_t`` argtypes: the C signature
-(/root/reference/inc/compute_paths.h:59-74) takes ``size_t`` counts, so
+(reference ``inc/compute_paths.h:59-74``) takes ``size_t`` counts, so
 ctypes must use ``c_size_t`` (SURVEY.md §7 M0 caveat).
 """
 from __future__ import annotations
@@ -71,7 +71,7 @@ def _build() -> None:
     srcs = [os.path.join(REFERENCE_DIR, "src", f)
             for f in ("compute_paths.c", "scene.c", "materials.c")]
     # -fno-builtin and -Wl,-Bsymbolic are load-bearing: the reference defines
-    # its own ``void csqrtf(...)`` (/root/reference/src/compute_paths.c:136)
+    # its own ``void csqrtf(...)`` (reference ``src/compute_paths.c:136``)
     # that collides with the libm symbol.  Without them, (a) gcc -O2 treats
     # calls to it as the pure builtin and may delete them, and (b) in a shared
     # library the PLT resolves csqrtf to libm's (already loaded by Python),

@@ -33,6 +33,14 @@ def test_main_refuses_without_gpu(capsys):
     assert '"ok"' not in capsys.readouterr().out
 
 
+def test_bench_refuses_without_gpu(capsys):
+    import bench
+    with pytest.raises(SystemExit) as exc:
+        bench.main()
+    assert exc.value.code not in (0, None)
+    assert '"metric"' not in capsys.readouterr().out
+
+
 def test_script_alone_fails(tmp_path):
     """Copied into a directory without the repository, the script exits
     non-zero and prints no result."""

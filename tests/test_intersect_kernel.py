@@ -87,10 +87,13 @@ def test_kernel_block_sizes(block):
 
 @pytest.mark.parametrize("bad", [True, 0, 48, "auto", 1.0])
 def test_block_sizes_must_be_power_of_two_ints(bad):
+    tris = _soup()
+    o, d = _rays(tris, 4)
     with pytest.raises(ValueError):
-        TracerConfig(block_rays=bad)
+        pallas_intersect(jnp.asarray(o), jnp.asarray(d), tris,
+                         block_rays=bad, interpret=True)
     with pytest.raises(ValueError):
-        make_pallas_intersect(_soup(), block_tris=bad, interpret=True)
+        make_pallas_intersect(tris, block_tris=bad, interpret=True)
 
 
 def test_kernel_all_miss():

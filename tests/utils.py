@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-# the reference checkout: $HERMESPY_RT_REFERENCE, else "reference" beside
-# this checkout
+# the reference checkout: $HERMESPY_RT_REFERENCE, else the gitignored
+# "reference" directory inside this checkout
 REF_DIR = os.environ.get("HERMESPY_RT_REFERENCE", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "reference"))
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "reference"))
 
 
 def ref_path(*parts: str) -> str:
